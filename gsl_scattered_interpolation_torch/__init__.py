@@ -1,0 +1,18 @@
+"""gsl_scattered_interpolation_torch — scattered-data interpolation in PyTorch.
+
+The port of ``gsl_scattered_interpolation_tpu`` to PyTorch and CUDA on an
+NVIDIA H100, built slice by slice (ROADMAP.md).  It imports neither JAX nor
+the JAX package, which stays the reference its tests hold it against.
+
+Layout:
+  ops/       geometry and the wrappers of the hand-written kernels
+  models/    triangulation engines and the ScatteredInterp facade
+  kernels/   CUDA sources (csrc/) and their nvcc build
+  utils/     errors, machine constants, rng, fixtures
+
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+"""
+
+from .models.scattered import ScatteredInterp  # noqa: F401
+
+__version__ = "0.1.0"

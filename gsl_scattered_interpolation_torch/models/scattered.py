@@ -1,0 +1,158 @@
+"""ScatteredInterp: the gsl_interp-style facade over the Delaunay engines.
+
+Construct once from sites and values (the ``simplex_tree_init`` analog),
+then evaluate batches of queries (``find_leaf`` + ``interp_point``) with
+the init/eval/eval_e shape of GSL's interpolation families.
+
+Engines:
+  * ``"host"`` — the arbitrary-dimension Bowyer-Watson engine
+    (models.host_tree), frozen to tensors on ``device``;
+  * ``"device"`` (2D) and ``"cavity"`` (3D) — the device builds, which come
+    with later slices of the port;
+  * ``"auto"`` — device for d == 2, cavity for d == 3, host otherwise, as in
+    the JAX package.
+
+Evaluation runs on ``device`` through the batched query path
+(models.device_tri).  ``eval_deriv`` returns the piecewise-constant gradient
+of the linear interpolant in the containing simplex.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import device_tri, host_tree
+from ..utils import errors
+
+DEFAULT = host_tree.DEFAULT
+NOSTANDARDIZE = host_tree.NOSTANDARDIZE
+ISOSCALE = host_tree.ISOSCALE
+
+_NOT_YET = {
+    "device": "the 2D device Delaunay build comes with slice 2 of the port "
+    "(ROADMAP Queue A items 3-4); use engine='host'",
+    "cavity": "the cavity engine comes with ROADMAP Queue A item 7; "
+    "use engine='host'",
+}
+
+
+class ScatteredInterp:
+    """See module docstring.
+
+    device: where the triangulation lives and queries run ("cuda" unless
+    the caller asks for the CPU).  dtype: query-path precision; ``None``
+    picks float32 on CUDA (the fast path) and float64 on the CPU
+    (GSL parity).
+    """
+
+    name = "linear_simplex"
+    min_size = 1
+
+    def __init__(
+        self,
+        sites,
+        values,
+        lo=None,
+        hi=None,
+        flags: int = DEFAULT,
+        key=None,
+        engine: str = "auto",
+        dtype=None,
+        grid_res: int = 256,
+        device="cuda",
+    ):
+        device = torch.device(device)
+        if dtype is None:
+            dtype = torch.float32 if device.type == "cuda" else torch.float64
+        sites = np.asarray(sites, np.float64)
+        values = np.asarray(values, np.float64)
+        if sites.ndim != 2:
+            raise errors.InvalidArgumentError("sites must be [n, d]")
+        n, d = sites.shape
+        if values.shape != (n,):
+            raise errors.InvalidArgumentError(
+                f"values shape {values.shape} != ({n},)"
+            )
+        if engine == "auto":
+            engine = "device" if d == 2 else "cavity" if d == 3 else "host"
+        if engine in _NOT_YET:
+            raise NotImplementedError(_NOT_YET[engine])
+        if engine != "host":
+            raise errors.InvalidArgumentError(f"unknown engine {engine!r}")
+        self.engine = engine
+        self.dim = d
+        self.n_sites = n
+        self.tree = host_tree.build(sites, lo=lo, hi=hi, flags=flags, key=key)
+        self.tri = device_tri.freeze(
+            self.tree, grid_res=grid_res, device=device
+        ).cast(dtype)
+        if self.tri.n_tris > device_tri.DENSE_LOCATE_MAX_TRIS:
+            raise NotImplementedError(
+                f"{self.tri.n_tris} simplexes exceed the brute-force locate's "
+                f"{device_tri.DENSE_LOCATE_MAX_TRIS}; the cell index and the "
+                "walk come with ROADMAP Queue A item 5"
+            )
+        self.response = device_tri.reindex_response(
+            self.tree, values, device=device
+        ).to(dtype)
+        self.shuffle = self.tree.shuffle
+
+    # -- evaluation ------------------------------------------------------
+
+    def _queries(self, q):
+        q = torch.as_tensor(q, dtype=self.tri.dtype, device=self.tri.device)
+        return torch.atleast_2d(q)
+
+    def _locate(self, q):
+        return device_tri.locate_dense(self.tri, q)
+
+    def eval(self, q, strict: bool = False):
+        """Barycentric interpolation at [B, d] raw query points.
+
+        Values fade to 0 toward and outside the data hull (cage-vertex
+        zeros, linear_simplex.c:697-706); out-of-cage queries return 0.
+        ``strict=True`` raises DomainError if any query is outside the cage.
+        """
+        q = self._queries(q)
+        vals = device_tri.interp(self.tri, self.response, q)
+        if strict:
+            _, _, ok = self._locate(q)
+            if not bool(torch.all(ok)):
+                raise errors.DomainError("query outside the cage domain")
+        return vals
+
+    def eval_e(self, q):
+        """(values [B], status [B]): SUCCESS, or EDOM outside the cage."""
+        q = self._queries(q)
+        leaf, w, ok = self._locate(q)
+        r = self.response[self.tri.tri_verts[leaf]]
+        vals = torch.where(ok, torch.sum(w * r, dim=-1), 0.0)
+        status = torch.where(
+            ok, torch.tensor(errors.SUCCESS), torch.tensor(errors.EDOM)
+        ).to(torch.int32)
+        return vals, status
+
+    def eval_deriv(self, q):
+        """Gradient [B, d] of the piecewise-linear interpolant.
+
+        Constant per simplex: grad = sum_k r_k * grad(w_k), with the weight
+        gradients read off the simplex's affine map rows.
+        """
+        q = self._queries(q)
+        d = self.dim
+        leaf, w, ok = self._locate(q)
+        row = self.tri.affine[leaf]
+        A = row[:, : d * d].reshape(-1, d, d)  # dcoords/dq
+        r = self.response[self.tri.tri_verts[leaf]]  # [B, d+1]
+        # w = [coords, 1 - sum(coords)] => dw/dq rows: A, then -sum of A rows.
+        g = torch.sum(r[:, :d, None] * A, dim=1) - r[:, d:] * torch.sum(
+            A, dim=1
+        )
+        return torch.where(ok[:, None], g, 0.0)
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def n_simplexes(self) -> int:
+        return int(self.tri.n_tris)

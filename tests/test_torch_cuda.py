@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Run on a machine with a CUDA card (it has no JAX, so skip the JAX
+conftest):
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test skips.  Whether a card is present is decided
+inside each test, never while the module is imported.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gsl_scattered_interpolation_torch import ScatteredInterp
+from gsl_scattered_interpolation_torch.models import device_tri, host_tree
+from gsl_scattered_interpolation_torch.ops import locate
+from gsl_scattered_interpolation_torch.utils import datasets, errors
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _tri(n_sites, seed, device):
+    sites = np.random.default_rng(seed).uniform(-0.5, 0.5, size=(n_sites, 2))
+    tree = host_tree.build(sites, flags=host_tree.NOSTANDARDIZE)
+    return device_tri.freeze(tree, device=device).cast(torch.float32)
+
+
+# Ragged sizes: B not a multiple of the 256-thread block, T below, at and
+# past the 1,024-triangle shared-memory chunk.
+@pytest.mark.parametrize("n_sites,n_q", [(1, 1), (300, 1000), (511, 257), (1500, 70_001)])
+def test_kernel_equals_plain(cuda, n_sites, n_q):
+    tri = _tri(n_sites, n_sites, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n_q)
+    q = torch.rand(n_q, 2, generator=gen, device=cuda) * 1.2 - 0.6
+    centre, g_pack, b_pack = locate.pack_tables(tri)
+    qc = (q - centre).contiguous()
+    before = locate.locate2d_cuda.launches
+    got = locate.locate2d_cuda(qc, g_pack, b_pack)
+    torch.cuda.synchronize()
+    assert locate.locate2d_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n_q,)
+    torch.testing.assert_close(got, locate.locate2d_ref(qc, g_pack, b_pack), rtol=0, atol=0)
+
+
+def test_tie_goes_to_lowest_index(cuda):
+    # Column 1 and column 1025 (across a chunk) tie for every query.
+    T = 1100
+    g = torch.zeros(4, T, device=cuda)
+    b = torch.full((2, T), -5.0, device=cuda)
+    b[:, 0] = -1e30
+    for t in (1, 1025):
+        g[0, t] = g[3, t] = 1.0
+        b[:, t] = 0.2
+    q = torch.tensor([[0.1, 0.1], [-0.05, 0.02], [3.0, -2.0]], device=cuda)
+    got = locate.locate2d_cuda(q, g, b)
+    assert got.tolist() == [1, 1, 1]
+    assert locate.locate2d_ref(q, g, b).tolist() == [1, 1, 1]
+
+
+def test_wrapper_checks_inputs(cuda):
+    g = torch.zeros(4, 3, device=cuda)
+    b = torch.zeros(2, 3, device=cuda)
+    q = torch.zeros(5, 2, device=cuda)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q.double(), g, b)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(torch.zeros(2, 5, device=cuda).T, g, b)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g[:3], b)
+    assert locate.locate2d_cuda(q[:0], g, b).shape == (0,)
+
+
+def test_facade_on_card_matches_cpu(cuda):
+    sites, temps = datasets.weather()
+    rng = np.random.default_rng(0)
+    Q = rng.uniform([-89.0, 41.2], [-87.0, 42.8], size=(3000, 2))
+    gpu = ScatteredInterp(sites, temps, key=0, engine="host")
+    cpu = ScatteredInterp(sites, temps, key=0, engine="host", device="cpu")
+    assert gpu.tri.device.type == "cuda" and gpu.tri.dtype == torch.float32
+    before = locate.locate2d_cuda.launches
+    v = gpu.eval(Q)
+    assert locate.locate2d_cuda.launches == before + 1
+    np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-5 * 300)
+    vals, status = gpu.eval_e(np.array([[-88.0, 41.5], [1e7, 1e7]]))
+    assert status.tolist() == [errors.SUCCESS, errors.EDOM] and vals[1] == 0
+    # Gradients jump across edges, so compare them at triangle centroids.
+    tv = cpu.tri.tri_verts.long()
+    data = (tv > 2).all(dim=1)
+    C = cpu.tri.points_raw[tv[data]].mean(dim=1).numpy()
+    np.testing.assert_allclose(
+        gpu.eval_deriv(C).cpu().numpy(), cpu.eval_deriv(C).numpy(), rtol=1e-4, atol=1e-3
+    )

@@ -1,0 +1,70 @@
+"""The port runs without JAX and without the JAX package.
+
+The card's machine has no JAX, so neither the port nor chip_smoke.py may
+import it, directly or through ``gsl_scattered_interpolation_tpu``.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (test files import both frameworks)
+import numpy as np
+import pytest
+import torch  # noqa: F401
+
+from gsl_scattered_interpolation_tpu.utils import datasets
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "gsl_scattered_interpolation_torch"
+FORBIDDEN = ("jax", "jaxlib", "gsl_scattered_interpolation_tpu")
+
+_SCRIPT = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+import chip_smoke
+from gsl_scattered_interpolation_torch import ScatteredInterp
+from gsl_scattered_interpolation_torch.utils import datasets
+sites, temps = datasets.weather()
+si = ScatteredInterp(sites, temps, key=0, engine="host", device="cpu")
+v = si.eval(np.array([[-88.0, 41.5], [1e7, 1e7]]))
+tri = chip_smoke.host_triangulation(30, 0, "cpu")
+print(si.n_simplexes, tri.n_tris, float(v[0]), float(v[1]))
+"""
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_slice_runs_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.format(forbidden=FORBIDDEN)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n_simplexes, n_tris, inside, outside = out.stdout.split()
+    sites, temps = datasets.weather()
+    assert int(n_simplexes) == 2 * len(sites) + 1 and int(n_tris) == 61
+    assert temps.min() <= float(inside) <= temps.max()
+    assert float(outside) == 0.0
+    assert np.isfinite(float(inside))

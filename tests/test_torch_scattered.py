@@ -1,0 +1,138 @@
+"""Port's ScatteredInterp(engine="host") vs the JAX facade, and the slice
+as a whole: host build -> freeze -> locate -> eval on a headline-like
+problem, against the JAX package's own path."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsl_scattered_interpolation_tpu import ScatteredInterp as JaxInterp
+from gsl_scattered_interpolation_tpu.models import device_tri as jdt
+from gsl_scattered_interpolation_tpu.models import host_tree as jht
+from gsl_scattered_interpolation_tpu.utils import datasets, rng as jrng
+
+from gsl_scattered_interpolation_torch import ScatteredInterp
+from gsl_scattered_interpolation_torch.models import device_tri
+from gsl_scattered_interpolation_torch.utils import errors
+
+
+@pytest.fixture(scope="module")
+def weather():
+    sites, temps = datasets.weather()
+    perm = jrng.insertion_shuffle(0, len(sites))
+    ref = JaxInterp(sites, temps, key=0, engine="host")
+    ours = {
+        dt: ScatteredInterp(sites, temps, key=perm, engine="host", device="cpu", dtype=dt)
+        for dt in (torch.float64, torch.float32)
+    }
+    rng = np.random.default_rng(0)
+    Q = np.concatenate([
+        rng.uniform([-89.5, 41.0], [-86.5, 43.1], size=(600, 2)),
+        [[1e7, 1e7], [-1e7, 3e6]],  # outside the cage
+    ])
+    return sites, temps, ref, ours, Q
+
+
+# f64: the 1e-9 of tests/test_device_tri.py; f32: 1e-5 of the response scale.
+def _atol(dtype, temps):
+    return 1e-9 if dtype == torch.float64 else 1e-5 * float(np.abs(temps).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_eval_matches_jax(weather, dtype):
+    sites, temps, ref, ours, Q = weather
+    si = ours[dtype]
+    assert si.n_simplexes == ref.n_simplexes
+    v = si.eval(Q)
+    assert v.dtype == dtype
+    np.testing.assert_allclose(v.numpy(), np.asarray(ref.eval(Q)), rtol=0, atol=_atol(dtype, temps))
+    assert v[-1] == 0.0 and v[-2] == 0.0
+    np.testing.assert_allclose(si.eval(sites).numpy(), temps, rtol=0, atol=_atol(dtype, temps) * 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_eval_e_matches_jax(weather, dtype):
+    _, temps, ref, ours, Q = weather
+    v, s = ours[dtype].eval_e(Q)
+    jv, js = ref.eval_e(Q)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert s[-1] == errors.EDOM and s[0] == errors.SUCCESS
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=_atol(dtype, temps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_eval_deriv_matches_jax(weather, dtype):
+    _, temps, ref, ours, Q = weather
+    g = ours[dtype].eval_deriv(Q).numpy()
+    jg = np.asarray(ref.eval_deriv(Q))
+    if dtype == torch.float64:
+        np.testing.assert_allclose(g, jg, rtol=1e-9, atol=1e-9)
+    else:
+        # A query within f32 noise of an edge may sit in the neighbour,
+        # whose gradient differs; everywhere else the gradients agree.
+        close = np.all(np.isclose(g, jg, rtol=1e-4, atol=1e-3), axis=1)
+        assert close.mean() > 0.99
+    assert np.all(g[-2:] == 0)
+
+
+def test_strict_and_arguments(weather):
+    sites, temps, _, ours, _ = weather
+    si = ours[torch.float64]
+    with pytest.raises(errors.DomainError):
+        si.eval([[1e7, 1e7]], strict=True)
+    si.eval([[-88.0, 41.5]], strict=True)
+    with pytest.raises(errors.InvalidArgumentError):
+        ScatteredInterp(sites, temps[:-1], engine="host", device="cpu")
+    with pytest.raises(errors.InvalidArgumentError):
+        ScatteredInterp(sites[:, 0], temps, engine="host", device="cpu")
+    with pytest.raises(errors.InvalidArgumentError):
+        ScatteredInterp(sites, temps, engine="nope", device="cpu")
+
+
+@pytest.mark.parametrize("engine,d", [("auto", 2), ("device", 2), ("cavity", 3), ("auto", 3)])
+def test_device_engines_come_later(engine, d):
+    sites = np.random.default_rng(0).uniform(size=(10, d))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ScatteredInterp(sites, np.zeros(10), engine=engine, device="cpu")
+
+
+def test_past_brute_force_limit_raises(weather, monkeypatch):
+    sites, temps, *_ = weather
+    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 50)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        ScatteredInterp(sites, temps, engine="host", device="cpu")
+
+
+def test_host_engine_any_dimension():
+    rng = np.random.default_rng(4)
+    sites = rng.uniform(-0.5, 0.5, size=(15, 4))
+    vals = rng.normal(size=15)
+    perm = jrng.insertion_shuffle(1, 15)
+    Q = rng.uniform(-0.2, 0.2, size=(50, 4))
+    ref = np.asarray(JaxInterp(sites, vals, key=1).eval(Q))  # auto = host for d=4
+    ours = ScatteredInterp(sites, vals, key=perm, device="cpu").eval(Q)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_slice_end_to_end_matches_jax_headline_path(dtype):
+    # bench.py's headline path at a small size: host build with
+    # NOSTANDARDIZE, freeze, brute-force locate, eval.
+    rng = np.random.default_rng(0)
+    sites = rng.uniform(-0.5, 0.5, size=(200, 2))
+    values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+    Q = rng.uniform(-0.45, 0.45, size=(2000, 2))
+    tree = jht.build(sites, flags=jht.NOSTANDARDIZE)
+    jtri, jresp = jdt.freeze(tree, grid_res=128), jdt.reindex_response(tree, values)
+    torch_dtype, atol = torch.float64, 1e-9
+    if dtype == "f32":
+        jtri, jresp, Q = jtri.cast(jnp.float32), jresp.astype(jnp.float32), Q.astype(np.float32)
+        torch_dtype, atol = torch.float32, 1e-5
+    ref = np.asarray(jdt.interp(jtri, None, jnp.asarray(Q), method="dense",
+                                resp_tri=jdt.vertex_responses(jtri, jresp)))
+    si = ScatteredInterp(sites, values, flags=1, engine="host", device="cpu", dtype=torch_dtype)
+    for method in ("auto", "pallas"):
+        ours = device_tri.interp(si.tri, si.response, si._queries(Q), method=method)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=atol)
+    np.testing.assert_allclose(si.eval(Q).numpy(), ref, rtol=0, atol=atol)
