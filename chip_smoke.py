@@ -5,11 +5,16 @@ Usage, from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version on the card, drives the main
-path (``ScatteredInterp(engine="host")`` and ``.eval`` on 10 batches of a
-million queries, at the size of bench.py's headline), checks the result
-against the matmul brute force and against scipy, and times it all.
+It builds the port's CUDA kernels from the sources in the checkout and
+holds each kernel against its plain PyTorch version on the card: the locate
+kernel on two triangulations, the flip-candidate kernel at three states of
+a 200,000-site device build in float32 and float64.  It then runs that
+device build end to end and checks it (structure, local Delaunay, agreement
+with scipy), and drives both main paths at the size of bench.py's headline,
+each with the launch counters set to 0 just before it: ``ScatteredInterp``
+with ``engine="host"`` and with ``engine="device"``, then ``.eval`` on 10
+batches of a million queries, checked against the matmul brute force and
+against scipy.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -23,19 +28,26 @@ import json
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 
 N_SITES = 2000          # bench.py headline: T = 2 * 2000 + 1 = 4001
 N_SITES_LARGE = 8000    # T = 16001, just under the brute-force limit
+N_BUILD = 200_000       # device build at scale: M = 2N + 3 = 400,003 slots
+BUILD_SEED = 3
 BATCH = 1_000_000
 N_BATCHES = 10
 N_CHECK = 100_000       # queries held against dense locate and scipy
 EVAL_VS_DENSE_MAX = 1e-3   # bench.py's gate between the two locates
 EVAL_VS_SCIPY_MAX = 1e-4   # float32 values of O(1)
-# H100 SXM data sheet: 67 TFLOP/s float32 counts an FMA as two operations,
-# so one non-FMA float32 instruction per lane and clock is 33.5e12 per s.
+SCIPY_AGREE_MIN = 0.995    # share of the f32 build's data triangles in scipy's
+# H100 SXM data sheet: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
+# the tensor cores count an FMA as two operations, so one non-FMA
+# instruction per lane and clock is 33.5e12 (float32) and 17e12 (float64)
+# per s.
 F32_OPS_PER_S = 33.5e12
+F64_OPS_PER_S = 17e12
 HBM_BYTES_PER_S = 3.35e12
 LOCATE_OPS_PER_PAIR = 13   # 4 mul, 4 add, 2 sub, 2 min, 1 compare
 
@@ -79,6 +91,21 @@ def host_triangulation(n_sites: int, seed: int, device):
     )
 
 
+def device_triangulation(n_sites: int, seed: int, device):
+    """The port's device build of a headline problem, float32 on ``device``."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import host_tree
+
+    sites, _ = headline_problem(n_sites, seed)
+    tri, _ = dd.triangulate(
+        sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float32,
+        grid_res=128, device=device,
+    )
+    return tri.cast(torch.float32)
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
     import torch
@@ -103,6 +130,55 @@ def locate_bound_ms(n_q: int, n_t: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def candmath_bound_ms(n_rows: int, double: bool):
+    """(least ms, "operations" or "bytes") for the verdicts of n_rows rows.
+
+    In float32 every operation takes one issue slot.  In float64 the float
+    operations run on the FP64 pipe while the integer and select ones
+    issue beside them, so the larger of the two times bounds it."""
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    edges = 3 * n_rows
+    fl, other = candmath.FLOAT_OPS_PER_EDGE, candmath.OTHER_OPS_PER_EDGE
+    ops_s = edges * (fl + other) / F32_OPS_PER_S
+    if double:
+        ops_s = max(ops_s, edges * fl / F64_OPS_PER_S)
+    ops_ms = 1e3 * ops_s
+    # Per row: apex and far coordinates (12 values), ids and far ids
+    # (24 B), three masks (7 B) in; verdicts (3 B) out.
+    fb = 8 if double else 4
+    bytes_ms = 1e3 * n_rows * (12 * fb + 24 + 7 + 3) / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sass_counts(name: str) -> dict:
+    """Instructions of each kernel instance in the built library of
+    ``csrc/<name>.cu``, by opcode, from ``cuobjdump -sass``: what the
+    compiled kernel issues per thread, beside the count of its bound."""
+    import os
+    import re
+
+    from gsl_scattered_interpolation_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path(name))],
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*kernelI([fd])E", line)
+        if m:
+            fn = {"f": "float", "d": "double"}[m.group(1)]
+            counts[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn and m:
+            op = m.group(1)
+            counts[fn][op] = counts[fn].get(op, 0) + 1
+    return counts
+
+
 def check_locate(tri, q):
     """Kernel against its plain version on the same tables and queries,
     with the times of both and the kernel's bound."""
@@ -122,12 +198,290 @@ def check_locate(tri, q):
     return rec
 
 
-def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int):
-    """Build the facade and evaluate ``n_batches`` query batches.
+NP_DTYPE = {"float32": np.float32, "float64": np.float64}
 
-    Returns a dict of what was measured and checked; raises on a failed
-    check.
+
+def build_points(sites, dtype):
+    """The points [N+3, 2] that the build triangulates, as float64 numpy:
+    the cage, then the sites jittered by 8 ulps of ``dtype``, each rounded
+    to ``dtype``.
+
+    Made here from the raw sites by the reference build's recipe, not by
+    the code under test: with ``flags=NOSTANDARDIZE`` the shift is 0 and
+    the scale 1; with ``key=None`` there is no shuffle; the jitter is
+    ``8 eps * default_rng(12345).uniform(-1, 1, (N, 2))``; the cage is the
+    regular triangle of circumradius 1 (linear_simplex.c:215-232) scaled by
+    ``1 / (eps^(1/5) * inradius)`` (:234-260).
     """
+    np_dtype = NP_DTYPE[str(dtype).split(".")[-1]]
+    eps = float(np.finfo(np_dtype).eps)
+    chosen = np.sqrt(1.0 - 0.25)
+    cage = np.array([[1.0, 0.0], [-0.5, chosen], [-0.5, -(0.5 + 0.25) / chosen]])
+    inradius = (cage[0, 0] - cage[1, 0]) / 3
+    cage = cage * (1.0 / (eps ** 0.2 * inradius))
+    jitter = 8.0 * eps * np.random.default_rng(12345).uniform(-1, 1, sites.shape)
+    pts = np.concatenate([cage, sites + jitter])
+    return pts.astype(np_dtype).astype(np.float64)
+
+
+def require_same_points(sites, dtype, pts):
+    """The build's own set-up must give the points of :func:`build_points`."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import host_tree
+
+    *_, shuffle, _, cage_std, sites_std = dd.build_inputs(
+        sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype
+    )
+    theirs = torch.cat([cage_std, torch.as_tensor(sites_std, dtype=dtype)])
+    require(np.array_equal(shuffle, np.arange(sites.shape[0])), "key=None shuffled")
+    require(np.array_equal(theirs.double().numpy(), pts),
+            "the build's points differ from the reference recipe")
+
+
+def build_states(pts):
+    """Drive the build as ``device_delaunay.build_2d`` does and keep
+    three states: after 4 rounds of split and 2 flip sub-rounds, right after
+    the first split round that leaves fewer than N/2 sites uninserted, and
+    the finished triangulation."""
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    N = pts.shape[0] - 3
+    st = dd._init_state(pts, N)
+    states = {}
+    rounds = 0
+    while int(st.n_left) > 0:
+        st = dd._split_round(pts, st)
+        if "half" not in states and int(st.n_left) < N / 2:
+            states["half"] = st
+        st, _ = dd._flip_rounds(pts, st, dd.FLIPS_PER_ROUND)
+        rounds += 1
+        if rounds == 4:
+            states["mid"] = st
+    st, _ = dd._flip_rounds(pts, st, dd.MAX_FLIP_ROUNDS, relocate=False)
+    states["final"] = st
+    return {k: states[k] for k in ("mid", "half", "final")}
+
+
+def candmath_inputs(pts, st):
+    """The exact arguments ``_edge_candidates`` gives the verdict."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    M = st.tri_v.shape[0] - 1
+    rows = torch.arange(M, dtype=torch.int32, device=pts.device)
+    rvalid = torch.ones(M, dtype=torch.bool, device=pts.device)
+    _, _, args = dd._edge_candidate_inputs(
+        pts, st.tri_v, st.tri_n, st.cc, rows, rvalid
+    )
+    apex3, fq3, tv, _, far3, _, valid3, cok, degen_u = args
+    kargs = tuple(a.contiguous() for a in (apex3, fq3, tv, far3, valid3, cok, degen_u))
+    return args, kargs
+
+
+def check_candmath(sites, dtype, device):
+    """Kernel against plain version at the three states; the times at the
+    finished state.  Returns a list of records."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    pts = torch.as_tensor(build_points(sites, dtype), dtype=dtype, device=device)
+    recs = []
+    for label, st in build_states(pts).items():
+        args, kargs = candmath_inputs(pts, st)
+        ref = candmath.edge_candidates_math_ref(*args)
+        got = candmath.edge_candidates_math_cuda(*kargs)
+        torch.cuda.synchronize()
+        R = int(ref.shape[0])
+        rec = {
+            "state": label, "dtype": str(dtype).split(".")[-1], "rows": R,
+            "mismatches": int((got != ref).sum()),
+            "max_abs_err": float((got != ref).any()),
+            "candidates": int(ref.sum()),
+        }
+        if label == "final":
+            rec["ms"] = time_ms(lambda: candmath.edge_candidates_math_cuda(*kargs), 20)
+            rec["plain_ms"] = time_ms(lambda: candmath.edge_candidates_math_ref(*args), 3)
+            rec["bound_ms"], rec["bound_by"] = candmath_bound_ms(
+                R, dtype == torch.float64
+            )
+        log(f"candmath2d kernel vs plain: {json.dumps(rec)}")
+        require(rec["mismatches"] == 0, f"candmath2d disagrees with its plain version: {rec}")
+        require(label == "final" or rec["candidates"] > 0, f"no candidates: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def _device_us(evt) -> float:
+    """Self device time of a profiler average, in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile_build(fn):
+    """Device time of ``fn()`` by kernel name, from ``torch.profiler``:
+    (busy ms, {name: (launches, ms)})."""
+    import torch
+
+    # Device activity only: recording every host op would slow the
+    # profiled build many times over.
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {
+        e.key: (e.count, _device_us(e) / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+    }
+    return sum(ms for _, ms in rows.values()), rows
+
+
+def _tri_keys(tri, n):
+    """int64 key of each triangle's sorted vertex triple."""
+    t = np.sort(np.asarray(tri, np.int64), axis=1)
+    return (t[:, 0] * n + t[:, 1]) * n + t[:, 2]
+
+
+def _incircle_exact(a, b, c, d) -> Fraction:
+    """The incircle determinant in exact rational arithmetic."""
+    F = Fraction
+    adx, ady = F(a[0]) - F(d[0]), F(a[1]) - F(d[1])
+    bdx, bdy = F(b[0]) - F(d[0]), F(b[1]) - F(d[1])
+    cdx, cdy = F(c[0]) - F(d[0]), F(c[1]) - F(d[1])
+    ad2, bd2, cd2 = adx * adx + ady * ady, bdx * bdx + bdy * bdy, cdx * cdx + cdy * cdy
+    return (adx * (bdy * cd2 - cdy * bd2) - ady * (bdx * cd2 - cdx * bd2)
+            + ad2 * (bdx * cdy - cdx * bdy))
+
+
+def _orient_exact(a, b, c) -> Fraction:
+    F = Fraction
+    return ((F(b[0]) - F(a[0])) * (F(c[1]) - F(a[1]))
+            - (F(b[1]) - F(a[1])) * (F(c[0]) - F(a[0])))
+
+
+def _on_tie(pts, tri, nbrs, r) -> bool:
+    """Whether triangle r shares an exactly cocircular quad with one of its
+    neighbours."""
+    v = tri[r]
+    for u in nbrs[r]:
+        far = [x for x in tri[u] if x not in v] if u >= 0 else []
+        if far and _incircle_exact(*(pts[i] for i in v), pts[far[0]]) == 0:
+            return True
+    return False
+
+
+def _holds_cage(cage, a, b, c) -> bool:
+    """Whether a cage vertex lies strictly inside the circumcircle of
+    (a, b, c), exactly: then the triangle cannot be in a triangulation
+    that includes the cage."""
+    o = 1 if _orient_exact(a, b, c) > 0 else -1
+    return any(_incircle_exact(a, b, c, v) * o > 0 for v in cage)
+
+
+def build_at_scale(sites, dtype, device):
+    """``triangulate`` of the sites on the card, with its checks.  Returns
+    a record of what was measured."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import host_tree
+    from gsl_scattered_interpolation_torch.ops import candmath
+    from gsl_scattered_interpolation_torch.utils import integrity
+
+    N = sites.shape[0]
+    pts = build_points(sites, dtype)
+    require_same_points(sites, dtype, pts)
+
+    def run(stats=None):
+        return dd.triangulate(
+            sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype, device=device,
+            stats=stats,
+        )
+
+    stats = {}
+    candmath.edge_candidates_math_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tri, _ = run(stats)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = candmath.edge_candidates_math_cuda.launches
+    # The same build again under the profiler, for the device time by
+    # kernel; its host clock carries the profiler's cost, so build_s is
+    # taken from the run above.
+    busy_ms, rows = profile_build(run)
+    kernel = [v for k, v in rows.items() if candmath.KERNEL in k]
+    require(len(kernel) == 1, f"the profiler saw {len(kernel)} {candmath.KERNEL} rows")
+    kernel_launches, kernel_ms = kernel[0]
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:6]
+    sub_rounds = stats["insert_sub_rounds"] + stats["cleanup_sub_rounds"]
+    rec = {"dtype": str(dtype).split(".")[-1], "n_sites": N,
+           "n_tris": tri.n_tris, "build_s": build_s, **stats,
+           "candmath_launches": launches, "candmath_ms_total": kernel_ms,
+           "candmath_share_of_build": kernel_ms / (1e3 * build_s),
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (1e3 * build_s),
+           "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top}}
+    require(tri.n_tris == 2 * N + 1, f"{tri.n_tris} triangles, not {2 * N + 1}")
+    require(launches == sub_rounds, f"{launches} launches for {sub_rounds} sub-rounds")
+    require(kernel_launches == launches,
+            f"the profiler saw {kernel_launches} launches, the counter {launches}")
+
+    tv = tri.tri_verts.cpu().numpy()
+    tn = tri.tri_nbrs.cpu().numpy()
+    integrity.check_array_structure(tv, tn)
+    # Local Delaunay on the build's own coordinates, in float64.
+    rec["local_delaunay_violations"] = integrity.local_delaunay_violations(pts, tv, tn)
+    require(rec["local_delaunay_violations"] == 0, f"local Delaunay fails: {rec}")
+
+    data = (tv > 2).all(axis=1)
+    if dtype == torch.float32:
+        ours = _tri_keys(tv[data] - 3, N)
+        sd = Delaunay(sites)
+        theirs = _tri_keys(sd.simplices, N)
+        rec["scipy_agree"] = float(np.isin(ours, theirs).mean())
+        require(rec["scipy_agree"] >= SCIPY_AGREE_MIN, f"scipy agreement: {rec}")
+    else:
+        # scipy on the build's own standardized, jittered float64 sites.
+        site_pts = pts[3:]
+        sd = Delaunay(site_pts)
+        ours = _tri_keys(tv[data] - 3, N)
+        theirs = _tri_keys(sd.simplices, N)
+        only_ours = np.nonzero(data)[0][~np.isin(ours, theirs)]
+        only_theirs = np.nonzero(~np.isin(theirs, ours))[0]
+        # A difference is explained by an exact tie, or, for one of scipy's
+        # hull triangles, by a cage vertex inside its circumcircle.
+        ties = sum(_on_tie(pts, tv, tn, r) for r in only_ours)
+        ties_theirs = [_on_tie(site_pts, sd.simplices, sd.neighbors, r)
+                       for r in only_theirs]
+        caged = sum(
+            not tie and _holds_cage(pts[:3], *site_pts[sd.simplices[r]])
+            for r, tie in zip(only_theirs, ties_theirs)
+        )
+        ties += sum(ties_theirs)
+        rec.update(scipy_data_tris=int(theirs.size),
+                   scipy_only_ours=int(only_ours.size),
+                   scipy_only_theirs=int(only_theirs.size),
+                   scipy_ties=ties, scipy_cage_excluded=caged)
+        require(ties + caged == only_ours.size + only_theirs.size,
+                f"f64 build differs from scipy beyond exact ties: {rec}")
+    log(f"device build at scale: {json.dumps(rec)}")
+    return rec
+
+
+def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
+              engine: str):
+    """Build the facade with ``engine`` and evaluate ``n_batches`` query
+    batches.  Returns a dict of what was measured and checked; raises on a
+    failed check."""
     import torch
 
     from gsl_scattered_interpolation_torch import ScatteredInterp
@@ -136,14 +490,16 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int):
     from scipy.interpolate import LinearNDInterpolator
 
     sites, values = headline_problem(n_sites, seed=0)
+    cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     si = ScatteredInterp(
-        sites, values, flags=NOSTANDARDIZE, engine="host", device=device
+        sites, values, flags=NOSTANDARDIZE, engine=engine, device=device
     )
+    if cuda:
+        torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     Q = uniform_queries(batch, seed=1, device=device, batches=n_batches)
 
-    cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -160,22 +516,38 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int):
     q0 = Q[0, :n_check]
     dense = device_tri.interp(si.tri, si.response, q0, method="dense")
     vs_dense = float((out0 - dense).abs().max())
-    ref = LinearNDInterpolator(sites, values)(q0.double().cpu().numpy())
+    qn = q0.double().cpu().numpy()
+    got = out0.double().cpu().numpy()
+    ref = LinearNDInterpolator(sites, values)(qn)
     inside = np.isfinite(ref)
-    vs_scipy = float(
-        np.abs(out0.double().cpu().numpy()[inside] - ref[inside]).max()
-    )
-    require(inside.sum() > 0.99 * n_check, f"{inside.sum()} queries in the hull")
-    require(vs_dense < EVAL_VS_DENSE_MAX, f"eval vs dense locate {vs_dense}")
-    require(vs_scipy < EVAL_VS_SCIPY_MAX, f"eval vs scipy {vs_scipy}")
-    return {
+    vs_scipy = float(np.abs(got[inside] - ref[inside]).max())
+    res = {
+        "engine": engine,
         "n_simplexes": si.n_simplexes,
-        "host_build_s": build_s,
+        "build_s": build_s,
         "eval_s": eval_s,
         "queries_per_s": batch * n_batches / eval_s,
         "eval_vs_dense_max": vs_dense,
         "eval_vs_scipy_max": vs_scipy,
     }
+    if engine == "device":
+        # The device build triangulates the sites as it sees them: rounded
+        # to the build dtype and jittered by 8 of its ulps.  In float32 that
+        # moves near-cocircular quads, so scipy's reference is built on
+        # those same coordinates (in raw units); the gap to scipy on the
+        # exact sites is reported beside it.
+        res["eval_vs_scipy_exact_sites_max"] = vs_scipy
+        require(np.array_equal(si.shuffle, np.arange(n_sites)), "key=None shuffled")
+        own = build_points(sites, si.tri.dtype)[3:]
+        ref = LinearNDInterpolator(own, values)(qn)
+        inside = np.isfinite(ref)
+        vs_scipy = res["eval_vs_scipy_max"] = float(
+            np.abs(got[inside] - ref[inside]).max()
+        )
+    require(inside.sum() > 0.99 * n_check, f"{inside.sum()} queries in the hull")
+    require(vs_dense < EVAL_VS_DENSE_MAX, f"eval vs dense locate {vs_dense}")
+    require(vs_scipy < EVAL_VS_SCIPY_MAX, f"eval vs scipy {vs_scipy}")
+    return res
 
 
 def main() -> int:
@@ -186,7 +558,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     from gsl_scattered_interpolation_torch.kernels import build
-    from gsl_scattered_interpolation_torch.ops import locate
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
 
     # 1. Device.
     t0 = time.perf_counter()
@@ -198,48 +570,107 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     log(f"phase device: {time.perf_counter() - t0:.2f} s")
 
-    # 2. Build every kernel of the path from the sources.
-    t0 = time.perf_counter()
-    log(f"nvcc {locate.KERNEL}:\n{build.build(locate.KERNEL).strip()}")
-    log(f"phase build: {time.perf_counter() - t0:.2f} s")
+    # 2. Build every kernel of the paths from the sources, one after the
+    # other.
+    for name in (locate.KERNEL, candmath.KERNEL):
+        t0 = time.perf_counter()
+        out = build.build(name).strip()
+        log(f"nvcc {name}: {time.perf_counter() - t0:.2f} s\n{out}")
 
-    # 3. Kernel against its plain version at T = 4001 and T = 16001.
+    sass = sass_counts(candmath.KERNEL)
+    require(set(sass) == {"float", "double"}, f"SASS functions: {sorted(sass)}")
+    for fn, ops in sass.items():
+        pre = fn[0].upper()  # FADD, FMUL, FSETP, ... or DADD, DMUL, DSETP, ...
+        fp = sum(n for op, n in ops.items() if op[0] == pre)
+        log(f"sass {candmath.KERNEL}<{fn}>: {sum(ops.values())} instructions, "
+            f"{fp} of them {pre}*; {json.dumps(ops)}")
+
+    # 3. Locate kernel against its plain version at T = 4001 and T = 16001.
     t0 = time.perf_counter()
-    records = []
-    for n_sites, seed in ((N_SITES, 0), (N_SITES_LARGE, 1)):
-        tri = host_triangulation(n_sites, seed, "cuda")
+    locate_recs = []
+    for tri in (host_triangulation(N_SITES, 0, "cuda"),
+                device_triangulation(N_SITES_LARGE, 1, "cuda")):
         q = uniform_queries(BATCH, seed=2, device="cuda")[0]
         rec = check_locate(tri, q)
         log(f"locate2d kernel vs plain: {json.dumps(rec)}")
         require(rec["mismatches"] == 0, f"locate2d disagrees with its plain version: {rec}")
-        records.append(rec)
+        locate_recs.append(rec)
     torch.cuda.synchronize()
-    log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
+    log(f"phase locate kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
 
-    # 4. Main path, counted from zero.
+    # 4. Candidate kernel against its plain version at three build states.
+    t0 = time.perf_counter()
+    build_sites = np.random.default_rng(BUILD_SEED).uniform(-0.5, 0.5, size=(N_BUILD, 2))
+    cand_recs = {}
+    for dtype in (torch.float32, torch.float64):
+        cand_recs[dtype] = check_candmath(build_sites, dtype, "cuda")
+    log(f"phase candmath kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
+
+    # 5. The device build at scale, float32 then float64.
+    t0 = time.perf_counter()
+    builds = [
+        build_at_scale(build_sites, dt, "cuda")
+        for dt in (torch.float32, torch.float64)
+    ]
+    log(f"phase device build at scale: {time.perf_counter() - t0:.2f} s")
+
+    # 6. The main paths, each counted from zero.
     t0 = time.perf_counter()
     locate.locate2d_cuda.launches = 0
-    res = main_path("cuda", N_SITES, BATCH, N_BATCHES, N_CHECK)
-    launches = locate.locate2d_cuda.launches
-    res["locate2d_launches"] = launches
-    log(f"main path: {json.dumps(res)}")
-    require(launches > 0, "the main path never launched locate2d")
-    log(f"phase main-path: {time.perf_counter() - t0:.2f} s")
+    host = main_path("cuda", N_SITES, BATCH, N_BATCHES, N_CHECK, "host")
+    host["locate2d_launches"] = locate.locate2d_cuda.launches
+    log(f"main path: {json.dumps(host)}")
+    require(host["locate2d_launches"] > 0, "the host path never launched locate2d")
+    log(f"phase main path host: {time.perf_counter() - t0:.2f} s")
 
-    main_rec = records[0]
+    t0 = time.perf_counter()
+    locate.locate2d_cuda.launches = 0
+    candmath.edge_candidates_math_cuda.launches = 0
+    dev = main_path("cuda", N_SITES, BATCH, N_BATCHES, N_CHECK, "device")
+    dev["locate2d_launches"] = locate.locate2d_cuda.launches
+    dev["candmath2d_launches"] = candmath.edge_candidates_math_cuda.launches
+    log(f"main path: {json.dumps(dev)}")
+    require(dev["locate2d_launches"] > 0, "the device path never launched locate2d")
+    require(dev["candmath2d_launches"] > 0, "the device path never launched candmath2d")
+    log(f"phase main path device: {time.perf_counter() - t0:.2f} s")
+
+    loc = locate_recs[0]
+    c32 = cand_recs[torch.float32][-1]
+    c64 = cand_recs[torch.float64][-1]
     kernels = [{
         "name": locate.KERNEL,
         "route": "cuda",
         "source": "gsl_scattered_interpolation_torch/kernels/csrc/locate2d.cu",
         "replaces": "gsl_scattered_interpolation_tpu/ops/pallas_locate.py:35",
-        "launches": launches,
-        "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
+        "launches": dev["locate2d_launches"],
+        "launches_by_path": {"host": host["locate2d_launches"],
+                             "device": dev["locate2d_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
+        "ms": loc["ms"],
+        "plain_ms": loc["plain_ms"],
+        "bound_ms": loc["bound_ms"],
+        "bound_by": loc["bound_by"],
         "library_ms": None,  # no one PyTorch call computes this function
-        "shape": f"B={main_rec['B']} T={main_rec['T']}",
+        "shape": f"B={loc['B']} T={loc['T']}",
+    }, {
+        "name": candmath.KERNEL,
+        "route": "cuda",
+        "source": "gsl_scattered_interpolation_torch/kernels/csrc/candmath2d.cu",
+        "replaces": "gsl_scattered_interpolation_tpu/ops/pallas_candmath.py:43",
+        "launches": dev["candmath2d_launches"],
+        "launches_by_path": {"device": dev["candmath2d_launches"],
+                             "build_200k_f32": builds[0]["candmath_launches"],
+                             "build_200k_f64": builds[1]["candmath_launches"]},
+        "max_abs_err": max(
+            r["max_abs_err"] for rs in cand_recs.values() for r in rs
+        ),
+        "ms": c32["ms"],
+        "plain_ms": c32["plain_ms"],
+        "bound_ms": c32["bound_ms"],
+        "bound_by": c32["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes the verdict
+        "shape": f"R={c32['rows']} float32",
+        "float64": {k: c64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)

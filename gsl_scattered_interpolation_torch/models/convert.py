@@ -1,8 +1,10 @@
-"""Carry a triangulation across from the JAX package.
+"""Carry state across from the JAX package.
 
 :func:`from_jax_arrays` takes the fields of a JAX ``DeviceTriangulation``
-as numpy arrays (``np.asarray`` of each) and the response vector, so the
-port and the JAX package can be run on identical state.
+as numpy arrays (``np.asarray`` of each) and the response vector;
+:func:`from_jax_build_state` the fields of a JAX device-build
+``BuildState``.  The port and the JAX package can then run on identical
+state.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device_delaunay import BuildState
 from .device_tri import DeviceTriangulation
 
 
@@ -34,3 +37,28 @@ def from_jax_arrays(fields: dict, device="cuda"):
     if response is not None:
         response = torch.tensor(np.asarray(response), device=device)
     return DeviceTriangulation(**tensors), response
+
+
+def from_jax_build_state(fields: dict, device="cuda") -> BuildState:
+    """The port's BuildState on ``device`` from a JAX ``BuildState``.
+
+    ``fields`` maps each field name to a numpy array (``np.asarray`` of the
+    JAX array).  The JAX arrays have M rows; the port's get the spare trash
+    row M after them (-1 ids, zero cache).
+    """
+
+    def rows(name, fill):
+        a = torch.tensor(np.asarray(fields[name]), device=device)
+        return torch.cat([a, torch.full_like(a[:1], fill)])
+
+    def scalar(name):
+        return torch.tensor(int(fields[name]), dtype=torch.int32, device=device)
+
+    return BuildState(
+        tri_v=rows("tri_v", -1),
+        tri_n=rows("tri_n", -1),
+        cc=rows("cc", 0),
+        n_tris=scalar("n_tris"),
+        site_tri=torch.tensor(np.asarray(fields["site_tri"]), device=device),
+        n_left=scalar("n_left"),
+    )

@@ -16,10 +16,12 @@ Evaluation dots the weights with the vertex responses; cage rows of the
 response are 0, which gives the reference's fade to zero toward the hull
 (linear_simplex.c:697-706), and out-of-cage queries give 0.
 
-Point location by brute force (``locate_dense``, and on CUDA the Hopper
-kernel of ``ops/locate.py`` as ``method="pallas"``) covers up to
-``DENSE_LOCATE_MAX_TRIS`` triangles.  The visibility walk and the cell
-index, which serve larger triangulations, come with ROADMAP Queue A item 5.
+A triangulation comes from the host engine (:func:`freeze`) or from the
+device build (:func:`from_arrays`).  Point location by brute force
+(``locate_dense``, and on CUDA the Hopper kernel of ``ops/locate.py`` as
+``method="pallas"``) covers up to ``DENSE_LOCATE_MAX_TRIS`` triangles.
+The visibility walk and the cell index, which serve larger triangulations,
+come with ROADMAP Queue A item 5.
 """
 
 from __future__ import annotations
@@ -261,6 +263,76 @@ def freeze(tree, grid_res: int = 64, device="cuda") -> DeviceTriangulation:
         grid_tri=dev(grid),
         grid_res=grid_res,
     )
+
+
+def from_arrays(
+    points_raw,
+    shift,
+    scale,
+    tri_v,
+    tri_n,
+    alive,
+    grid_res: int = 256,
+    device="cuda",
+) -> DeviceTriangulation:
+    """Assemble a float64 DeviceTriangulation on ``device`` from build arrays.
+
+    Compacts to the alive simplexes in slot order and remaps neighbour ids,
+    on the arrays' device; computes the affine maps in float64 (``cast``
+    rounds them, as after :func:`freeze`).  ``points_raw`` rows 0..d are the
+    cage.  The walk-start grid comes from the host :func:`_bucket_grid`.
+    """
+    points_raw = np.asarray(points_raw, np.float64)
+    shift = np.asarray(shift, np.float64)
+    scale = np.asarray(scale, np.float64)
+    d = points_raw.shape[1]
+    tri_v = torch.as_tensor(tri_v, device=device)
+    tri_n = torch.as_tensor(tri_n, device=device)
+    alive = torch.as_tensor(alive, device=device)
+    M = tri_v.shape[0]
+    keep = torch.nonzero(alive)[:, 0]
+    remap = torch.full((M + 1,), -1, dtype=torch.int32, device=tri_v.device)
+    remap[keep] = torch.arange(
+        keep.numel(), dtype=torch.int32, device=tri_v.device
+    )
+    tv = tri_v[keep].to(torch.int32)
+    tn_keep = tri_n[keep]
+    tn = remap[torch.where(tn_keep >= 0, tn_keep, M).long()]
+
+    pts_std = scale * (points_raw - shift)
+    if d == 2:
+        grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)
+    elif d == 3:
+        grid_res = _grid_res_3d(tv.shape[0], grid_res)
+        grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)
+    else:
+        grid = np.zeros((1,) * d, dtype=np.int32)
+        grid_res = 1
+
+    def dev(a):
+        return torch.as_tensor(a, device=tri_v.device)
+
+    raw_t, shift_t, scale_t = dev(points_raw), dev(shift), dev(scale)
+    return DeviceTriangulation(
+        points_raw=raw_t,
+        points_std=dev(pts_std),
+        tri_verts=tv,
+        tri_nbrs=tn,
+        affine=affine_maps(raw_t, tv, scale_t, shift=shift_t),
+        shift=shift_t,
+        scale=scale_t,
+        grid_tri=dev(grid),
+        grid_res=grid_res,
+    )
+
+
+def response_for_build(shuffle, response, d: int = 2, device="cuda"):
+    """Float64 response [d+1+n] of a device-built triangulation: the cage
+    rows are 0 and data row i holds user row ``shuffle[i]``."""
+    response = np.asarray(response, np.float64)
+    out = np.zeros(d + 1 + response.shape[0], dtype=response.dtype)
+    out[d + 1 :] = response[np.asarray(shuffle)]
+    return torch.as_tensor(out, device=device)
 
 
 def reindex_response(tree, response, device="cuda") -> torch.Tensor:

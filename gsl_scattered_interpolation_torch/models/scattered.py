@@ -7,8 +7,11 @@ the init/eval/eval_e shape of GSL's interpolation families.
 Engines:
   * ``"host"`` — the arbitrary-dimension Bowyer-Watson engine
     (models.host_tree), frozen to tensors on ``device``;
-  * ``"device"`` (2D) and ``"cavity"`` (3D) — the device builds, which come
-    with later slices of the port;
+  * ``"device"`` — the 2D parallel build on ``device``
+    (models.device_delaunay), whose flip verdicts run in a CUDA kernel on
+    the card;
+  * ``"cavity"`` (3D) — the device cavity build, which comes with a later
+    slice of the port;
   * ``"auto"`` — device for d == 2, cavity for d == 3, host otherwise, as in
     the JAX package.
 
@@ -22,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import device_tri, host_tree
+from . import device_delaunay, device_tri, host_tree
 from ..utils import errors
 
 DEFAULT = host_tree.DEFAULT
@@ -30,20 +33,27 @@ NOSTANDARDIZE = host_tree.NOSTANDARDIZE
 ISOSCALE = host_tree.ISOSCALE
 
 _NOT_YET = {
-    "device": "the 2D device Delaunay build comes with slice 2 of the port "
-    "(ROADMAP Queue A items 3-4); use engine='host'",
     "cavity": "the cavity engine comes with ROADMAP Queue A item 7; "
     "use engine='host'",
 }
 
 
+def _check_locate_limit(n_tris: int) -> None:
+    if n_tris > device_tri.DENSE_LOCATE_MAX_TRIS:
+        raise NotImplementedError(
+            f"{n_tris} simplexes exceed the brute-force locate's "
+            f"{device_tri.DENSE_LOCATE_MAX_TRIS}; the cell index and the "
+            "walk come with ROADMAP Queue A item 5"
+        )
+
+
 class ScatteredInterp:
     """See module docstring.
 
-    device: where the triangulation lives and queries run ("cuda" unless
-    the caller asks for the CPU).  dtype: query-path precision; ``None``
-    picks float32 on CUDA (the fast path) and float64 on the CPU
-    (GSL parity).
+    device: where the triangulation is built and lives, and queries run
+    ("cuda" unless the caller asks for the CPU).  dtype: the precision of
+    the device build's predicates and of the query path; ``None`` picks
+    float32 on CUDA (the fast path) and float64 on the CPU (GSL parity).
     """
 
     name = "linear_simplex"
@@ -78,25 +88,35 @@ class ScatteredInterp:
             engine = "device" if d == 2 else "cavity" if d == 3 else "host"
         if engine in _NOT_YET:
             raise NotImplementedError(_NOT_YET[engine])
-        if engine != "host":
+        if engine not in ("host", "device"):
             raise errors.InvalidArgumentError(f"unknown engine {engine!r}")
         self.engine = engine
         self.dim = d
         self.n_sites = n
-        self.tree = host_tree.build(sites, lo=lo, hi=hi, flags=flags, key=key)
-        self.tri = device_tri.freeze(
-            self.tree, grid_res=grid_res, device=device
-        ).cast(dtype)
-        if self.tri.n_tris > device_tri.DENSE_LOCATE_MAX_TRIS:
-            raise NotImplementedError(
-                f"{self.tri.n_tris} simplexes exceed the brute-force locate's "
-                f"{device_tri.DENSE_LOCATE_MAX_TRIS}; the cell index and the "
-                "walk come with ROADMAP Queue A item 5"
+        if engine == "device":
+            # A 2D build of n sites always holds 2n + 1 triangles.
+            _check_locate_limit(2 * n + 1)
+            tri, self.shuffle = device_delaunay.triangulate(
+                sites, lo=lo, hi=hi, flags=flags, key=key, dtype=dtype,
+                grid_res=grid_res, device=device,
             )
-        self.response = device_tri.reindex_response(
-            self.tree, values, device=device
-        ).to(dtype)
-        self.shuffle = self.tree.shuffle
+            self.tri = tri.cast(dtype)
+            self.response = device_tri.response_for_build(
+                self.shuffle, values, d=d, device=device
+            ).to(dtype)
+            self.tree = None
+        else:
+            self.tree = host_tree.build(
+                sites, lo=lo, hi=hi, flags=flags, key=key
+            )
+            self.tri = device_tri.freeze(
+                self.tree, grid_res=grid_res, device=device
+            ).cast(dtype)
+            self.response = device_tri.reindex_response(
+                self.tree, values, device=device
+            ).to(dtype)
+            self.shuffle = self.tree.shuffle
+            _check_locate_limit(self.tri.n_tris)
 
     # -- evaluation ------------------------------------------------------
 

@@ -92,3 +92,79 @@ def orient2d(a, b, c):
     return (b[..., 0] - a[..., 0]) * (c[..., 1] - a[..., 1]) - (
         b[..., 1] - a[..., 1]
     ) * (c[..., 0] - a[..., 0])
+
+
+# ---------------------------------------------------------------------------
+# Batched small linear solves for the circumsphere
+# ---------------------------------------------------------------------------
+
+
+def _solve2(M, rhs):
+    """Closed-form 2x2 solve (Cramer), batched; (x [..., 2], ok [...])."""
+    a, b = M[..., 0, 0], M[..., 0, 1]
+    c, d = M[..., 1, 0], M[..., 1, 1]
+    det = a * d - b * c
+    ok = det != 0
+    safe = torch.where(ok, det, 1.0)
+    x = (rhs[..., 0] * d - b * rhs[..., 1]) / safe
+    y = (a * rhs[..., 1] - rhs[..., 0] * c) / safe
+    zero = torch.zeros_like(x)
+    coords = torch.stack(
+        [torch.where(ok, x, zero), torch.where(ok, y, zero)], dim=-1
+    )
+    return coords, ok
+
+
+def _solve3(M, rhs):
+    """Closed-form 3x3 solve (Cramer), batched; (x [..., 3], ok [...])."""
+    m = M
+    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    ok = det != 0
+    safe = torch.where(ok, det, 1.0)
+    r0, r1, r2 = rhs[..., 0], rhs[..., 1], rhs[..., 2]
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d_, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    detx = r0 * (e * i - f * h) - b * (r1 * i - f * r2) + c * (r1 * h - e * r2)
+    dety = a * (r1 * i - f * r2) - r0 * (d_ * i - f * g) + c * (d_ * r2 - r1 * g)
+    detz = a * (e * r2 - r1 * h) - b * (d_ * r2 - r1 * g) + r0 * (d_ * h - e * g)
+    coords = torch.stack([detx / safe, dety / safe, detz / safe], dim=-1)
+    coords = torch.where(ok[..., None], coords, 0.0)
+    return coords, ok
+
+
+def _solve(M, rhs):
+    d = M.shape[-1]
+    if d == 2:
+        return _solve2(M, rhs)
+    if d == 3:
+        return _solve3(M, rhs)
+    x = torch.linalg.solve_ex(M, rhs[..., None])[0][..., 0]
+    ok = torch.all(torch.isfinite(x), dim=-1)
+    return torch.where(ok[..., None], x, 0.0), ok
+
+
+# ---------------------------------------------------------------------------
+# Circumsphere (linear_simplex.c:539-605)
+# ---------------------------------------------------------------------------
+
+
+def circumsphere(verts_std):
+    """(center [..., d], r2 [...], ok [...]) of simplexes [..., d+1, d].
+
+    The Eickemeyer system of linear_simplex.c:552-605: row i is
+    ``v_i - v_{i+1}`` with right side ``(|v_i|^2 - |v_{i+1}|^2) / 2``; r2 is
+    the squared distance to vertex 0.  ``ok`` False marks a degenerate
+    simplex, which callers treat as containing every point (:517-521).
+    """
+    d = verts_std.shape[-1]
+    a = verts_std[..., :d, :] - verts_std[..., 1:, :]
+    sq = torch.sum(verts_std * verts_std, dim=-1)
+    b = 0.5 * (sq[..., :d] - sq[..., 1:])
+    center, ok = _solve(a, b)
+    diff = verts_std[..., 0, :] - center
+    r2 = torch.sum(diff * diff, dim=-1)
+    return center, r2, ok

@@ -99,3 +99,73 @@ def test_facade_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(
         gpu.eval_deriv(C).cpu().numpy(), cpu.eval_deriv(C).numpy(), rtol=1e-4, atol=1e-3
     )
+
+
+def _mid_build(n, dtype, device):
+    """The port's build after 4 rounds of split + 2 flip sub-rounds."""
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    sites = np.random.default_rng(3).uniform(-0.5, 0.5, size=(n, 2))
+    *_, cage_std, sites_std = dd.build_inputs(sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype)
+    pts = torch.cat([cage_std, torch.as_tensor(sites_std, dtype=dtype)]).to(device)
+    st = dd._init_state(pts, n)
+    for _ in range(4):
+        st = dd._split_round(pts, st)
+        st, _ = dd._flip_rounds(pts, st, 2)
+    return pts, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_candmath_kernel_equals_plain(cuda, dtype):
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    pts, st = _mid_build(5000, dtype, cuda)
+    M = st.tri_v.shape[0] - 1
+    rows = torch.arange(M, dtype=torch.int32, device=cuda)
+    _, _, args = dd._edge_candidate_inputs(
+        pts, st.tri_v, st.tri_n, st.cc, rows, torch.ones(M, dtype=torch.bool, device=cuda)
+    )
+    ref = candmath.edge_candidates_math_ref(*args)
+    before = candmath.edge_candidates_math_cuda.launches
+    got = candmath.edge_candidates_math(*args)
+    torch.cuda.synchronize()
+    assert candmath.edge_candidates_math_cuda.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (M, 3)
+    assert int(ref.sum()) > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_device_build_on_card_equals_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    sites = np.random.default_rng(1000).uniform(-0.5, 0.5, size=(1000, 2))
+    for dtype in (torch.float32, torch.float64):
+        before = candmath.edge_candidates_math_cuda.launches
+        gpu, sh_gpu = dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype)
+        assert candmath.edge_candidates_math_cuda.launches > before
+        cpu, sh_cpu = dd.triangulate(
+            sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype, device="cpu"
+        )
+        assert gpu.tri_verts.device.type == "cuda"
+        np.testing.assert_array_equal(sh_gpu, sh_cpu)
+        torch.testing.assert_close(gpu.tri_verts.cpu(), cpu.tri_verts, rtol=0, atol=0)
+        torch.testing.assert_close(gpu.tri_nbrs.cpu(), cpu.tri_nbrs, rtol=0, atol=0)
+
+
+def test_device_engine_on_card_matches_cpu(cuda):
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    sites, temps = datasets.weather()
+    rng = np.random.default_rng(0)
+    Q = rng.uniform([-89.0, 41.2], [-87.0, 42.8], size=(3000, 2))
+    b_loc, b_cand = locate.locate2d_cuda.launches, candmath.edge_candidates_math_cuda.launches
+    gpu = ScatteredInterp(sites, temps, key=0, engine="device")
+    cpu = ScatteredInterp(sites, temps, key=0, engine="device", device="cpu", dtype=torch.float32)
+    assert gpu.tri.dtype == torch.float32
+    v = gpu.eval(Q)
+    assert locate.locate2d_cuda.launches > b_loc
+    assert candmath.edge_candidates_math_cuda.launches > b_cand
+    np.testing.assert_array_equal(gpu.tri.tri_verts.cpu().numpy(), cpu.tri.tri_verts.numpy())
+    np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-5 * 300)

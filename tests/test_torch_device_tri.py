@@ -72,6 +72,24 @@ def test_affine_maps_match_jax(d, rtol, atol):
     np.testing.assert_allclose(ours.numpy(), ref, rtol=rtol, atol=atol)
 
 
+# The circumsphere that the integrity checks use: d <= 3 in closed form on
+# both sides (1e-12), d = 4 through an LU solve.
+@pytest.mark.parametrize("d,rtol", [(2, 1e-12), (3, 1e-12), (4, 1e-8)])
+def test_circumsphere_matches_jax(d, rtol):
+    from gsl_scattered_interpolation_tpu.ops import geometry as jgeo
+    from gsl_scattered_interpolation_torch.ops import geometry as geo
+
+    rng = np.random.default_rng(10 + d)
+    verts = rng.uniform(-0.5, 0.5, size=(200, d + 1, d))
+    verts[0, 1] = verts[0, 0]  # one degenerate simplex
+    c, r2, ok = geo.circumsphere(torch.as_tensor(verts))
+    jc, jr2, jok = jgeo.circumsphere(jnp.asarray(verts))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    assert not ok[0] and ok[1:].all()
+    np.testing.assert_allclose(c.numpy()[1:], np.asarray(jc)[1:], rtol=rtol, atol=1e-12)
+    np.testing.assert_allclose(r2.numpy()[1:], np.asarray(jr2)[1:], rtol=rtol, atol=1e-12)
+
+
 def test_degenerate_simplex_is_poisoned():
     raw = torch.tensor([[0.0, 0.0], [1.0, 0.0], [2.0, 0.0], [0.0, 1.0]])
     tv = torch.tensor([[0, 1, 2], [0, 1, 3]], dtype=torch.int32)

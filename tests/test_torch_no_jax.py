@@ -33,6 +33,10 @@ si = ScatteredInterp(sites, temps, key=0, engine="host", device="cpu")
 v = si.eval(np.array([[-88.0, 41.5], [1e7, 1e7]]))
 tri = chip_smoke.host_triangulation(30, 0, "cpu")
 print(si.n_simplexes, tri.n_tris, float(v[0]), float(v[1]))
+sd = ScatteredInterp(sites, temps, key=0, engine="device", device="cpu")
+vd = sd.eval(np.array([[-88.0, 41.5], [1e7, 1e7]]))
+td = chip_smoke.device_triangulation(30, 0, "cpu")
+print(sd.n_simplexes, td.n_tris, float(vd[0]), float(vd[1]))
 """
 
 
@@ -62,9 +66,14 @@ def test_slice_runs_with_jax_blocked():
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_simplexes, n_tris, inside, outside = out.stdout.split()
     sites, temps = datasets.weather()
-    assert int(n_simplexes) == 2 * len(sites) + 1 and int(n_tris) == 61
-    assert temps.min() <= float(inside) <= temps.max()
-    assert float(outside) == 0.0
-    assert np.isfinite(float(inside))
+    lines = out.stdout.split("\n")
+    for engine, line in zip(("host", "device"), lines[:2]):
+        n_simplexes, n_tris, inside, outside = line.split()
+        assert int(n_simplexes) == 2 * len(sites) + 1 and int(n_tris) == 61, engine
+        assert temps.min() <= float(inside) <= temps.max()
+        assert float(outside) == 0.0
+        assert np.isfinite(float(inside))
+    # Both engines triangulate the weather set alike away from its
+    # cocircular quad, so this query gets the same value.
+    assert float(lines[0].split()[2]) == pytest.approx(float(lines[1].split()[2]), abs=1e-9)
