@@ -447,6 +447,32 @@ def vertex_responses(tri: DeviceTriangulation, response_ext) -> torch.Tensor:
     return response_ext[tri.tri_verts]
 
 
+def auto_method(
+    device_type: str, dim: int, dtype, n_tris: int, cells_given: bool
+) -> str:
+    """The locate route that ``interp(method="auto")`` takes.
+
+    The cell index when one is given; else the Hopper locate kernel for 2D
+    float32 triangulations on CUDA up to ``PALLAS_LOCATE_MAX_TRIS``
+    triangles; else the matmul brute force up to ``DENSE_LOCATE_MAX_TRIS``;
+    else the walk.  The kernel scores in float32, so a float64
+    triangulation never goes to it: its float32 tables can pick a
+    neighbouring triangle whose float64 weights fail the float64 slack.
+    """
+    if cells_given and dim in (2, 3):
+        return "cells"
+    if (
+        device_type == "cuda"
+        and dim == 2
+        and dtype == torch.float32
+        and n_tris <= PALLAS_LOCATE_MAX_TRIS
+    ):
+        return "pallas"
+    if n_tris <= DENSE_LOCATE_MAX_TRIS:
+        return "dense"
+    return "walk"
+
+
 def interp(
     tri: DeviceTriangulation,
     response_ext,
@@ -460,23 +486,14 @@ def interp(
     678-711): cage rows of the response are zero (see
     :func:`reindex_response`), and out-of-cage queries return 0.
 
-    method: "auto" picks the Hopper locate kernel for 2D CUDA queries up to
-    ``PALLAS_LOCATE_MAX_TRIS`` triangles, else the matmul brute force
-    (:func:`locate_dense`) up to ``DENSE_LOCATE_MAX_TRIS``, else the walk.
-    "pallas" forces the locate kernel (its plain version on the CPU),
-    "dense" the matmul brute force; "cells" and "walk" are not ported yet.
+    method: "auto" takes the route of :func:`auto_method`.  "pallas"
+    forces the locate kernel (its plain version on the CPU), "dense" the
+    matmul brute force; "cells" and "walk" are not ported yet.
     """
     if method == "auto":
-        if (
-            q_raw.device.type == "cuda"
-            and tri.dim == 2
-            and tri.n_tris <= PALLAS_LOCATE_MAX_TRIS
-        ):
-            method = "pallas"
-        elif tri.n_tris <= DENSE_LOCATE_MAX_TRIS:
-            method = "dense"
-        else:
-            method = "walk"
+        method = auto_method(
+            q_raw.device.type, tri.dim, tri.dtype, tri.n_tris, False
+        )
     if method == "pallas":
         leaf = locate_ops.locate_dense_kernel(tri, q_raw)
         w = _weights(tri, leaf, q_raw)

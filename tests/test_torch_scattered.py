@@ -97,6 +97,46 @@ def test_device_engines_come_later(engine, d):
         ScatteredInterp(sites, np.zeros(10), engine=engine, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "device_type,dtype,want",
+    [("cuda", torch.float32, "pallas"), ("cuda", torch.float64, "dense"),
+     ("cpu", torch.float32, "dense"), ("cpu", torch.float64, "dense")],
+)
+def test_auto_method_sends_only_float32_to_the_kernel(device_type, dtype, want):
+    lim = device_tri.DENSE_LOCATE_MAX_TRIS
+    assert device_tri.auto_method(device_type, 2, dtype, 101, False) == want
+    assert device_tri.auto_method(device_type, 2, dtype, 101, True) == "cells"
+    assert device_tri.auto_method(device_type, 3, dtype, 101, False) == "dense"
+    assert device_tri.auto_method(device_type, 2, dtype, lim + 1, False) == "walk"
+
+
+@pytest.fixture(scope="module")
+def reanchor_queries(weather):
+    """ROADMAP Queue C item 1: 200,000 queries over the weather set, and
+    the JAX facade's float64 values there."""
+    Q = np.random.default_rng(2).uniform([-89, 41.2], [-87, 42.8], (200000, 2))
+    return Q, np.asarray(weather[2].eval(Q))
+
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_auto_route_keeps_every_query(weather, reanchor_queries, device_type, dtype):
+    # Each route that "auto" picks, run here on the CPU (the kernel's
+    # route through its plain version, which the card tests hold
+    # leaf-equal to the kernel), against the JAX float64 values.
+    _, temps, _, ours, _ = weather
+    Q, ref = reanchor_queries
+    si = ours[dtype]
+    q = si._queries(Q)
+    method = device_tri.auto_method(device_type, 2, dtype, si.n_simplexes, False)
+    v = device_tri.interp(si.tri, si.response, q, method=method).numpy()
+    np.testing.assert_allclose(v, ref, rtol=0, atol=_atol(dtype, temps))
+    if dtype == torch.float64:
+        # The float32 tables drop some of these queries in float64.
+        lost = device_tri.interp(si.tri, si.response, q, method="pallas").numpy()
+        assert np.sum(np.abs(lost - ref) > 1.0) > 0
+
+
 def test_past_brute_force_limit_raises(weather, monkeypatch):
     sites, temps, *_ = weather
     monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 50)
