@@ -14,7 +14,14 @@ with scipy), and drives both main paths at the size of bench.py's headline,
 each with the launch counters set to 0 just before it: ``ScatteredInterp``
 with ``engine="host"`` and with ``engine="device"``, then ``.eval`` on 10
 batches of a million queries, checked against the matmul brute force and
-against scipy.  Everything is timed.
+against scipy.  Last, the at-scale query path, counted from zero the same
+way: ``ScatteredInterp(engine="device")`` of the 200,000 sites (T = 400,001)
+builds its cell index on the card and answers 10 batches of a million
+float32 queries through ``locate_cells`` and the walk, checked against the
+locate kernel forced at that T and against scipy; then one batch through
+the float64 build (against scipy at 1e-9), one through 20,000 sites (host
+index), and the times of the kernel, the cell index and the walk per
+million queries at four T.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -42,6 +49,9 @@ N_CHECK = 100_000       # queries held against dense locate and scipy
 EVAL_VS_DENSE_MAX = 1e-3   # bench.py's gate between the two locates
 EVAL_VS_SCIPY_MAX = 1e-4   # float32 values of O(1)
 SCIPY_AGREE_MIN = 0.995    # share of the f32 build's data triangles in scipy's
+EVAL_VS_SCIPY_F64_MAX = 1e-9  # the JAX package's float64 tolerance
+LEAF_MISMATCH_MAX = 0.01   # bench.py's boundary check against the kernel
+N_SCALE_SMALL = 20_000     # T = 40,001: the host rasterizer builds the index
 # H100 SXM data sheet: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
 # the tensor cores count an FMA as two operations, so one non-FMA
 # instruction per lane and clock is 33.5e12 (float32) and 17e12 (float64)
@@ -387,7 +397,9 @@ def _holds_cage(cage, a, b, c) -> bool:
 
 def build_at_scale(sites, dtype, device):
     """``triangulate`` of the sites on the card, with its checks.  Returns
-    a record of what was measured."""
+    a record of what was measured, and scipy's triangulation of the
+    build's own points in float64 (None in float32, where the check uses
+    the exact sites)."""
     import torch
     from scipy.spatial import Delaunay
 
@@ -474,7 +486,7 @@ def build_at_scale(sites, dtype, device):
         require(ties + caged == only_ours.size + only_theirs.size,
                 f"f64 build differs from scipy beyond exact ties: {rec}")
     log(f"device build at scale: {json.dumps(rec)}")
-    return rec
+    return rec, (sd if dtype == torch.float64 else None)
 
 
 def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
@@ -550,6 +562,125 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
     return res
 
 
+def sync(device) -> None:
+    """Wait for the card, if ``device`` is one."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
+    """The at-scale query path on the card: ``ScatteredInterp`` with
+    ``engine="device"`` of ``sites`` (the headline's test function), its
+    cell index, and ``n_batches`` eval batches of a million queries, each
+    counted from zero.  Gated on the first N_CHECK queries: against the
+    locate kernel forced at this T (float32) and against scipy on the
+    build's own points (``scipy_tri``, or a new Delaunay of them).
+    Returns (record, facade)."""
+    import torch
+    from scipy.interpolate import LinearNDInterpolator
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch import ScatteredInterp
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
+
+    values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+    f32 = dtype == torch.float32
+    locate.locate2d_cuda.launches = 0
+    candmath.edge_candidates_math_cuda.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    si = ScatteredInterp(sites, values, flags=NOSTANDARDIZE, engine="device",
+                         dtype=dtype, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    T = si.n_simplexes
+    t0 = time.perf_counter()
+    cells = si._get_cells()
+    sync(device)
+    index_s = time.perf_counter() - t0
+    Q = uniform_queries(BATCH, seed=5, device=device, batches=n_batches).to(dtype)
+
+    walked = []
+    steps = device_tri.locate.steps
+    sync(device)
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(n_batches):
+        before = device_tri.locate.queries
+        outs.append(si.eval(Q[i]))
+        walked.append(device_tri.locate.queries - before)
+    sync(device)
+    eval_s = time.perf_counter() - t0
+    rec = {
+        "dtype": str(dtype).split(".")[-1], "n_sites": sites.shape[0],
+        "n_simplexes": T, "build_s": build_s,
+        "index_method": "device" if T >= device_tri.DEVICE_INDEX_MIN_TRIS else "host",
+        "index_s": index_s, "G": cells.res, "K": cells.k,
+        "table_MB": cells.table.numel() * 4 / 1e6, "complete": cells.complete,
+        "overflow_cells": int(cells.overflow.sum()),
+        "eval_s": eval_s, "queries_per_s": BATCH * n_batches / eval_s,
+        "walked_per_batch": walked,
+        "walk_steps": device_tri.locate.steps - steps,
+        "locate2d_launches": locate.locate2d_cuda.launches,
+        "candmath2d_launches": candmath.edge_candidates_math_cuda.launches,
+    }
+    require(T == 2 * sites.shape[0] + 1, f"{T} simplexes")
+    require(rec["candmath2d_launches"] > 0, "the build never launched candmath2d")
+
+    out0 = outs[0][:N_CHECK]
+    require(out0.shape == (N_CHECK,) and bool(torch.isfinite(out0).all()),
+            f"eval gave {tuple(out0.shape)} or non-finite values")
+    q0 = Q[0, :N_CHECK]
+    if f32:
+        # The brute-force kernel at this T as the cross-check (bench.py's
+        # boundary check): leaves and values.
+        leaf, _, _ = device_tri.locate_cells(si.tri, cells, q0)
+        kleaf = locate.locate_dense_kernel(si.tri, q0)
+        kval = device_tri.interp(si.tri, si.response, q0, method="pallas")
+        rec["leaf_mismatch_vs_locate2d"] = float((leaf != kleaf.long()).float().mean())
+        rec["eval_vs_locate2d_max"] = float((out0 - kval).abs().max())
+        require(rec["leaf_mismatch_vs_locate2d"] < LEAF_MISMATCH_MAX, f"leaves: {rec}")
+        require(rec["eval_vs_locate2d_max"] < EVAL_VS_DENSE_MAX, f"values vs locate2d: {rec}")
+    if scipy_tri is None:
+        scipy_tri = Delaunay(build_points(sites, dtype)[3:])
+    ref = LinearNDInterpolator(scipy_tri, values)(q0.double().cpu().numpy())
+    inside = np.isfinite(ref)
+    got = out0.double().cpu().numpy()
+    rec["eval_vs_scipy_max"] = float(np.abs(got[inside] - ref[inside]).max())
+    limit = EVAL_VS_SCIPY_MAX if f32 else EVAL_VS_SCIPY_F64_MAX
+    require(inside.sum() > 0.99 * N_CHECK, f"{inside.sum()} queries in the hull")
+    require(rec["eval_vs_scipy_max"] < limit, f"eval vs scipy: {rec}")
+    log(f"at-scale query: {json.dumps(rec)}")
+    return rec, si
+
+
+def crossover(cases, device="cuda"):
+    """Milliseconds per million f32 queries of ``interp`` through the
+    locate kernel, the cell index and the walk, for each (triangulation,
+    response, cell index or None to build one) case."""
+    from gsl_scattered_interpolation_torch.models import device_tri
+
+    q = uniform_queries(BATCH, seed=6, device=device)[0]
+    out = []
+    for tri, resp, cells in cases:
+        if cells is None:
+            cells = device_tri.build_cell_index(tri)
+        rec = {"T": tri.n_tris, "B": int(q.shape[0])}
+        for method in ("pallas", "cells", "walk"):
+            reps = 2 if method == "pallas" and tri.n_tris > 100_000 else 5
+            rec[f"{method}_ms"] = time_ms(
+                lambda: device_tri.interp(tri, resp, q, method=method, cells=cells), reps
+            )
+        log(f"crossover, ms per batch: {json.dumps(rec)}")
+        out.append(rec)
+    sync(device)
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -588,8 +719,9 @@ def main() -> int:
     # 3. Locate kernel against its plain version at T = 4001 and T = 16001.
     t0 = time.perf_counter()
     locate_recs = []
-    for tri in (host_triangulation(N_SITES, 0, "cuda"),
-                device_triangulation(N_SITES_LARGE, 1, "cuda")):
+    locate_tris = (host_triangulation(N_SITES, 0, "cuda"),
+                   device_triangulation(N_SITES_LARGE, 1, "cuda"))
+    for tri in locate_tris:
         q = uniform_queries(BATCH, seed=2, device="cuda")[0]
         rec = check_locate(tri, q)
         log(f"locate2d kernel vs plain: {json.dumps(rec)}")
@@ -608,10 +740,10 @@ def main() -> int:
 
     # 5. The device build at scale, float32 then float64.
     t0 = time.perf_counter()
-    builds = [
+    (b32, _), (b64, scipy64) = (
         build_at_scale(build_sites, dt, "cuda")
         for dt in (torch.float32, torch.float64)
-    ]
+    )
     log(f"phase device build at scale: {time.perf_counter() - t0:.2f} s")
 
     # 6. The main paths, each counted from zero.
@@ -634,6 +766,29 @@ def main() -> int:
     require(dev["candmath2d_launches"] > 0, "the device path never launched candmath2d")
     log(f"phase main path device: {time.perf_counter() - t0:.2f} s")
 
+    # 7. The at-scale query path: the 200k sites (T = 400,001, device
+    # index) in float32 and float64, and 20,000 sites (T = 40,001, host
+    # index); then the crossover of the kernel, the index and the walk.
+    t0 = time.perf_counter()
+    at_scale, facades = {}, {}
+    at_scale["f32_200k"], facades["f32_200k"] = at_scale_query(
+        build_sites, torch.float32, N_BATCHES)
+    at_scale["f64_200k"], _ = at_scale_query(
+        build_sites, torch.float64, 1, scipy_tri=scipy64)
+    small_sites = np.random.default_rng(BUILD_SEED + 1).uniform(
+        -0.5, 0.5, size=(N_SCALE_SMALL, 2))
+    at_scale["f32_20k"], facades["f32_20k"] = at_scale_query(
+        small_sites, torch.float32, 1)
+    log(f"phase at-scale query: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    cases = [(tri, torch.ones(tri.points_raw.shape[0], device="cuda"), None)
+             for tri in locate_tris]
+    cases += [(f.tri, f.response, f._cells)
+              for f in (facades["f32_20k"], facades["f32_200k"])]
+    cross = crossover(cases)
+    log(f"phase crossover: {time.perf_counter() - t0:.2f} s")
+
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
@@ -644,7 +799,9 @@ def main() -> int:
         "replaces": "gsl_scattered_interpolation_tpu/ops/pallas_locate.py:35",
         "launches": dev["locate2d_launches"],
         "launches_by_path": {"host": host["locate2d_launches"],
-                             "device": dev["locate2d_launches"]},
+                             "device": dev["locate2d_launches"],
+                             **{f"at_scale_{k}": r["locate2d_launches"]
+                                for k, r in at_scale.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
         "ms": loc["ms"],
         "plain_ms": loc["plain_ms"],
@@ -659,8 +816,10 @@ def main() -> int:
         "replaces": "gsl_scattered_interpolation_tpu/ops/pallas_candmath.py:43",
         "launches": dev["candmath2d_launches"],
         "launches_by_path": {"device": dev["candmath2d_launches"],
-                             "build_200k_f32": builds[0]["candmath_launches"],
-                             "build_200k_f64": builds[1]["candmath_launches"]},
+                             "build_200k_f32": b32["candmath_launches"],
+                             "build_200k_f64": b64["candmath_launches"],
+                             **{f"at_scale_{k}": r["candmath2d_launches"]
+                                for k, r in at_scale.items()}},
         "max_abs_err": max(
             r["max_abs_err"] for rs in cand_recs.values() for r in rs
         ),
@@ -672,6 +831,7 @@ def main() -> int:
         "shape": f"R={c32['rows']} float32",
         "float64": {k: c64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]
+    log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

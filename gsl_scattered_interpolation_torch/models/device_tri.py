@@ -17,11 +17,20 @@ response are 0, which gives the reference's fade to zero toward the hull
 (linear_simplex.c:697-706), and out-of-cage queries give 0.
 
 A triangulation comes from the host engine (:func:`freeze`) or from the
-device build (:func:`from_arrays`).  Point location by brute force
-(``locate_dense``, and on CUDA the Hopper kernel of ``ops/locate.py`` as
-``method="pallas"``) covers up to ``DENSE_LOCATE_MAX_TRIS`` triangles.
-The visibility walk and the cell index, which serve larger triangulations,
-come with ROADMAP Queue A item 5.
+device build (:func:`from_arrays`).  Queries are located by one of:
+
+* brute force (``locate_dense``, and for float32 on CUDA the Hopper kernel
+  of ``ops/locate.py`` as ``method="pallas"``), up to
+  ``DENSE_LOCATE_MAX_TRIS`` triangles;
+* the cell index (:func:`build_cell_index`, :func:`locate_cells`): per-cell
+  candidate lists over a uniform grid, one row gather per query, with the
+  walk for the queries the lists cannot settle;
+* the batched visibility walk (:func:`locate`) from a bucket-grid start.
+
+The walk, the index build and ``locate_cells`` are plain PyTorch ops on
+the tensors' device, as they are plain ``jnp`` ops in the JAX package.
+The JAX ``while_loop`` and ``lax.cond`` tiers become Python loops with a
+few host reads (recorded in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,16 +42,16 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import geometry
 from ..ops import locate as locate_ops
-from ..utils import machine
+from ..utils import errors, machine
 
-# Brute-force locate covers triangulations up to this size.  The value is
-# the JAX package's TPU crossover (device_tri.py:1796-1800), kept as is; the
-# H100 crossover against the walk is not measured yet.
+# Brute-force locate serves triangulations up to this size, and the cell
+# index and the walk larger ones.  The value is the JAX package's TPU
+# crossover (device_tri.py:1796-1800), kept as is; chip_smoke.py measures
+# the H100 crossover against the cell index.
 DENSE_LOCATE_MAX_TRIS = 16384
 PALLAS_LOCATE_MAX_TRIS = 16384
-
-_LATER = "comes with ROADMAP Queue A item 5 (at-scale 2D query)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,9 +437,666 @@ def locate_dense(tri: DeviceTriangulation, q_raw, block: int | None = None):
     return best, w, _in_domain(w)
 
 
-def locate(tri, q_raw):
-    """Batched visibility walk — not ported yet."""
-    raise NotImplementedError(f"the visibility walk {_LATER}")
+# The walk reads ``done.all()`` back from the device once every this many
+# steps, where the JAX ``while_loop`` tests it before every step.  A query
+# that is done never moves again, so the extra steps change no result.
+WALK_DONE_EVERY = 4
+
+
+def locate(
+    tri: DeviceTriangulation,
+    q_raw,
+    start=None,
+    max_steps: int = 128,
+    tol: float | None = None,
+):
+    """Batched visibility-walk point location.
+
+    Every query starts at ``start`` (default: the bucket-grid hint of
+    :func:`walk_start`) and steps across its most-violated face until its
+    weights are all >= ``-tol``.  On odd steps a query with two violated
+    faces takes the second-most-violated one, which breaks the longer
+    cycles a deterministic walk can orbit among float32 slivers.  A query
+    stops when it steps back to the simplex it came from (2-cycle: both
+    contain it within noise) or walks into a boundary face (outside the
+    cage).  ``tol`` defaults to 16 ulps of the query dtype; 0 would be the
+    reference's exact test (linear_simplex.c:665-675).
+
+    Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).  A query that
+    used up ``max_steps`` is reported out of domain unless its final
+    simplex contains it.  Each call adds the queries it walked and the
+    lockstep steps it took to ``locate.queries`` and ``locate.steps``.
+    """
+    B = q_raw.shape[0]
+    dev = q_raw.device
+    if tol is None:
+        tol = 16.0 * machine.eps(q_raw.dtype)
+    if start is None:
+        start = walk_start(tri, q_raw)
+    cur = torch.as_tensor(start, device=dev).long()
+    prev = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    outside = torch.zeros(B, dtype=torch.bool, device=dev)
+    faces = torch.arange(tri.dim + 1, device=dev)
+    step = 0
+    while step < max_steps:
+        if step % WALK_DONE_EVERY == 0 and bool(done.all()):
+            break
+        w = _weights(tri, cur, q_raw)
+        worst = torch.argmin(w, dim=-1)
+        if step & 1:
+            second = torch.argmin(
+                torch.where(faces == worst[:, None], torch.inf, w), dim=-1
+            )
+            two_neg = torch.sum(w < -tol, dim=-1) > 1
+            worst = torch.where(two_neg, second, worst)
+        inside = torch.all(w >= -tol, dim=-1)
+        nbr = tri.tri_nbrs[cur].gather(1, worst[:, None])[:, 0].long()
+        hit_boundary = (nbr < 0) & ~inside
+        cycling = (nbr == prev) & ~inside
+        advance = ~(done | inside | hit_boundary | cycling)
+        outside = outside | (hit_boundary & ~done)
+        done = ~advance
+        prev = torch.where(advance, cur, prev)
+        cur = torch.where(advance, torch.where(nbr < 0, cur, nbr), cur)
+        step += 1
+    locate.queries += B
+    locate.steps += step
+    w = _weights(tri, cur, q_raw)
+    contained = torch.all(w >= -tol, dim=-1)
+    return cur, w, ~outside & (contained | done)
+
+
+locate.queries = 0
+locate.steps = 0
+
+
+def walk_start(tri: DeviceTriangulation, q_raw) -> torch.Tensor:
+    """Walk start [B] int64: the bucket-grid simplex of each query's cell
+    for d <= 3, simplex 0 otherwise."""
+    B = q_raw.shape[0]
+    if tri.grid_res <= 1 or tri.dim > 3:
+        return torch.zeros(B, dtype=torch.int64, device=q_raw.device)
+    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+    cell = torch.clamp((q_std + 0.5) * tri.grid_res, 0, tri.grid_res - 1)
+    return tri.grid_tri[tuple(cell.long().unbind(-1))].long()
+
+
+# ---------------------------------------------------------------------------
+# Cell-candidate point location (the large-T path)
+# ---------------------------------------------------------------------------
+
+# build_cell_index(method="auto") builds on the device from this many 2D
+# simplexes on (the JAX package's threshold).
+DEVICE_INDEX_MIN_TRIS = 200_000
+_INDEX_3D = "the 3D cell index comes with ROADMAP Queue A item 7"
+
+
+@dataclasses.dataclass(frozen=True)
+class CellIndex:
+    """Per-cell candidate tables for point location.
+
+    A uniform G x G grid over the standardized data square; every cell
+    lists the triangles that intersect it (conservative rasterization),
+    each as 7 float32 fields: the query-centred score form
+    (g00, g01, g10, g11, b0, b1) and the triangle id as a float (exact for
+    T < 2^24).  The row is field-major (all K g00s, then all K g01s, ...),
+    and empty slots score -inf through a 1e30 bias and id -1.
+
+    Coverage: a query inside a listed cell whose containing triangle
+    intersects that cell always finds it.  Overflowed cells (more than K
+    intersecting triangles) and out-of-square queries fall back to the
+    walk.
+
+    ``complete`` is True iff every simplex/cell intersection is listed (the
+    host build, or a device build with no span-cap or pair-budget drops).
+    When it is False, :func:`locate_cells` walks every query that no
+    candidate contains: a non-overflow cell's "no candidate contains q" is
+    exact only for complete lists.  Caveat: an incomplete index's fast
+    path is exact only to the tolerance.  A query whose true simplex was
+    span-cap-dropped can be accepted by a listed neighbour within the
+    float32 containment slack; across a skinny neighbour the value error is
+    then of the order of the slack times the weight gradient.
+    """
+
+    table: torch.Tensor     # [G^2, 7K] float32, field-major
+    overflow: torch.Tensor  # [G^2] bool: candidate list truncated
+    hint: torch.Tensor      # [G^2] int32: walk-start simplex per cell
+    res: int                # G
+    k: int                  # K, candidates per cell
+    rows: torch.Tensor | None = None  # the 3D two-stage layout; None in 2D
+    complete: bool = True
+
+
+def _qcentered_tables(tri: DeviceTriangulation):
+    """(g [T, d, d], bias [T, d]) with coords(q) = g @ (q - shift) + bias,
+    in the triangulation's dtype."""
+    d = tri.dim
+    T = tri.n_tris
+    A = tri.affine[:, : d * d].reshape(T, d, d)
+    anchor = tri.affine[:, d * d : d * d + d]
+    w0 = tri.affine[:, d * d + d :]
+    bias = w0 + torch.sum(A * (tri.shift - anchor)[:, None, :], dim=-1)
+    return A, bias
+
+
+def _qcentered_host(tri: DeviceTriangulation):
+    """Host float64 q-centred score tables (numpy).
+
+    Returns ``(g [T, d, d], bias [T, d])`` with
+    ``coords(q_raw) = g @ (q_raw - shift) + bias``, the form of
+    :func:`_qcentered_tables`, computed from the standardized vertex
+    coordinates in float64.  Degenerate simplexes get ``bias = +1e30``, so
+    their smallest weight is hugely negative and they never win the argmax
+    (the empty-slot convention of the packed cell table).
+    """
+    pts = tri.points_std.cpu().numpy().astype(np.float64)
+    tv = tri.tri_verts.cpu().numpy()
+    scale = tri.scale.cpu().numpy().astype(np.float64)
+    d = pts.shape[1]
+    verts = pts[tv]                       # [T, d+1, d] standardized
+    origin = verts[:, d, :]               # coords are weights of verts[:d]
+    M = np.swapaxes(verts[:, :d, :] - origin[:, None, :], -1, -2)
+    if d == 2:
+        a, b = M[:, 0, 0], M[:, 0, 1]
+        c, dd_ = M[:, 1, 0], M[:, 1, 1]
+        det = a * dd_ - b * c
+        adj = np.stack(
+            [np.stack([dd_, -b], -1), np.stack([-c, a], -1)], -2
+        )
+    elif d == 3:
+        a, b, c = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
+        e, f, g_ = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
+        h, i, j = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
+        A0 = f * j - g_ * i
+        B0 = -(e * j - g_ * h)
+        C0 = e * i - f * h
+        det = a * A0 + b * B0 + c * C0
+        adj = np.stack(
+            [
+                np.stack([A0, -(b * j - c * i), b * g_ - c * f], -1),
+                np.stack([B0, a * j - c * h, -(a * g_ - c * e)], -1),
+                np.stack([C0, -(a * i - b * h), a * f - b * e], -1),
+            ],
+            -2,
+        )
+    else:
+        raise NotImplementedError("q-centered host tables are d<=3")
+    bad = det == 0
+    g_std = adj / np.where(bad, 1.0, det)[:, None, None]
+    # q_std - origin = scale*(q - shift) - origin  =>
+    # coords = (g_std * scale) @ (q - shift) - g_std @ origin
+    g = g_std * scale[None, None, :]
+    bias = -np.einsum("tij,tj->ti", g_std, origin)
+    g[bad] = 0.0
+    bias[bad] = 1e30
+    return g, bias
+
+
+def build_cell_index(
+    tri: DeviceTriangulation,
+    grid_res: int | None = None,
+    K: int = 16,
+    method: str = "auto",
+) -> CellIndex:
+    """Rasterize the triangles into per-cell candidate lists, once.
+
+    Conservative: every (triangle, cell) intersection is listed.  Triangles
+    whose bounding box spans at most 4096 cells take the box's cells that
+    pass a half-plane test against the cell centre dilated by half a cell
+    diagonal; larger ones (cage slivers) take an exact scanline pass.
+
+    ``method``: "host" is the numpy rasterizer (always complete); "device"
+    builds on the triangulation's device (:func:`_build_cell_index_device`);
+    "auto" picks the device from ``DEVICE_INDEX_MIN_TRIS`` triangles on.
+    The result's tensors lie on the triangulation's device.
+    """
+    if tri.dim == 3:
+        raise NotImplementedError(_INDEX_3D)
+    if tri.dim != 2:
+        raise NotImplementedError("cell index is 2D/3D")
+    if method == "auto":
+        method = "device" if tri.n_tris >= DEVICE_INDEX_MIN_TRIS else "host"
+    if method == "device":
+        return _build_cell_index_device(tri, grid_res, K)
+    if method != "host":
+        raise errors.InvalidArgumentError(f"unknown index method {method!r}")
+    pts = tri.points_std.cpu().numpy().astype(np.float64)
+    tv = tri.tri_verts.cpu().numpy()
+    T = tv.shape[0]
+    if grid_res is None:
+        grid_res = int(np.clip(int(np.sqrt(max(T, 1) / 2.0)), 16, 2048))
+    G = int(grid_res)
+    cell_w = 1.0 / G  # std square is [-0.5, 0.5]^2
+
+    verts = pts[tv]  # [T, 3, 2]
+    lo = np.clip(np.floor((verts.min(1) + 0.5) * G).astype(np.int32), 0, G - 1)
+    hi = np.clip(np.floor((verts.max(1) + 0.5) * G).astype(np.int32), 0, G - 1)
+    span = (hi[:, 0] - lo[:, 0] + 1).astype(np.int64) * (
+        hi[:, 1] - lo[:, 1] + 1
+    )
+
+    pair_cell = []
+    pair_tri = []
+    half_diag = cell_w * np.sqrt(0.5) + 1e-12
+
+    def _halfplane_keep(tris_ids, CX, CY):
+        """Conservative triangle/cell-centre test, vectorized over pairs."""
+        a = verts[tris_ids, 0]
+        b = verts[tris_ids, 1]
+        c = verts[tris_ids, 2]
+        area = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (
+            b[:, 1] - a[:, 1]
+        ) * (c[:, 0] - a[:, 0])
+        sgn = np.where(area >= 0, 1.0, -1.0)
+        ok = np.ones(tris_ids.shape, bool)
+        for p, qv in ((a, b), (b, c), (c, a)):
+            ex, ey = qv[:, 0] - p[:, 0], qv[:, 1] - p[:, 1]
+            el = np.hypot(ex, ey)
+            el = np.where(el == 0, 1.0, el)
+            inward = sgn * (ex * (CY - p[:, 1]) - ey * (CX - p[:, 0])) / el
+            ok &= inward >= -half_diag
+        return ok
+
+    def emit_bbox(mask):
+        ids = np.nonzero(mask)[0].astype(np.int32)
+        if ids.size == 0:
+            return
+        nx = (hi[ids, 0] - lo[ids, 0] + 1).astype(np.int64)
+        ny = (hi[ids, 1] - lo[ids, 1] + 1).astype(np.int64)
+        cnt = nx * ny
+        rep = np.repeat(ids, cnt)
+        k = np.arange(cnt.sum(), dtype=np.int64) - np.repeat(
+            np.cumsum(cnt) - cnt, cnt
+        )
+        nxr = np.repeat(nx, cnt)
+        dx = (k % nxr).astype(np.int32)
+        dy = (k // nxr).astype(np.int32)
+        cx_i = lo[rep, 0] + dx
+        cy_i = lo[rep, 1] + dy
+        # Drop the box cells the triangle does not reach.
+        CX = (cx_i + 0.5) * cell_w - 0.5
+        CY = (cy_i + 0.5) * cell_w - 0.5
+        keep = _halfplane_keep(rep, CX, CY)
+        pair_tri.append(rep[keep])
+        pair_cell.append(
+            cx_i[keep].astype(np.int64) * G + cy_i[keep]
+        )
+
+    big = span > 4096
+    emit_bbox(~big)
+    # Scanline pass for the few huge triangles: per x-row, the dilated
+    # half-planes give a closed-form y-cell interval, O(G) cells per
+    # triangle instead of O(G^2).
+    big_ids = np.nonzero(big)[0]
+    if big_ids.size:
+        bv = verts[big_ids]                      # [B, 3, 2]
+        area = (bv[:, 1, 0] - bv[:, 0, 0]) * (bv[:, 2, 1] - bv[:, 0, 1]) - (
+            bv[:, 1, 1] - bv[:, 0, 1]
+        ) * (bv[:, 2, 0] - bv[:, 0, 0])
+        sgn = np.where(area >= 0, 1.0, -1.0)
+        p = bv                                   # edge tails
+        qv = bv[:, [1, 2, 0], :]                 # edge heads
+        ex = qv[..., 0] - p[..., 0]              # [B, 3]
+        ey = qv[..., 1] - p[..., 1]
+        el = np.hypot(ex, ey)
+        el = np.where(el == 0, 1.0, el)
+        alpha = sgn[:, None] * ex / el           # inward = alpha*CY - beta'
+        rows_per = (hi[big_ids, 0] - lo[big_ids, 0] + 1).astype(np.int64)
+        rep = np.repeat(np.arange(big_ids.size), rows_per)
+        k = np.arange(rows_per.sum(), dtype=np.int64) - np.repeat(
+            np.cumsum(rows_per) - rows_per, rows_per
+        )
+        xrow = lo[big_ids[rep], 0] + k
+        CXr = (xrow + 0.5) * cell_w - 0.5        # [R]
+        # constraint per edge: alpha*CY >= beta, from
+        # sgn*(ex*(CY-py) - ey*(CX-px))/el >= -half_diag
+        beta = (
+            -half_diag
+            + sgn[rep, None] * ey[rep] * (CXr[:, None] - p[rep, :, 0]) / el[rep]
+            + alpha[rep] * p[rep, :, 1]
+        )                                        # [R, 3]
+        al = alpha[rep]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lb = np.where(al > 0, beta / al, -np.inf)
+            ub = np.where(al < 0, beta / al, np.inf)
+        feas_eq = np.all((al != 0) | (beta <= 0), axis=1)
+        ylo = lb.max(axis=1)
+        yhi = ub.min(axis=1)
+        jlo = np.ceil((ylo + 0.5) / cell_w - 0.5).astype(np.int64)
+        jhi = np.floor((yhi + 0.5) / cell_w - 0.5).astype(np.int64)
+        jlo = np.maximum(jlo, lo[big_ids[rep], 1])
+        jhi = np.minimum(jhi, hi[big_ids[rep], 1])
+        width = np.where(feas_eq & (ylo <= yhi), jhi - jlo + 1, 0)
+        width = np.maximum(width, 0)
+        tot = int(width.sum())
+        if tot:
+            rep2 = np.repeat(np.arange(width.size), width)
+            jj = np.arange(tot, dtype=np.int64) - np.repeat(
+                np.cumsum(width) - width, width
+            )
+            pair_tri.append(big_ids[rep[rep2]])
+            pair_cell.append(xrow[rep2] * G + jlo[rep2] + jj)
+
+    cells = np.concatenate(pair_cell)
+    tris = np.concatenate(pair_tri)
+    order = np.argsort(cells, kind="stable")
+    cells = cells[order]
+    tris = tris[order]
+    counts = np.bincount(cells, minlength=G * G)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rank = (np.arange(cells.size, dtype=np.int64) - starts[cells]).astype(
+        np.int32
+    )
+    keep = rank < K
+    overflow = counts > K
+    rows_k = cells[keep]
+    cols_k = rank[keep]
+    tri_k = tris[keep]
+
+    # Walk-start hint: the first listed triangle, else the bucket grid's.
+    hint = np.full(G * G, -1, np.int32)
+    first = cols_k == 0
+    hint[rows_k[first]] = tri_k[first]
+    empty = hint < 0
+    if empty.any():
+        fallback = tri.grid_tri.cpu().numpy().reshape(-1)
+        gr = tri.grid_res
+        idx = np.arange(G * G)
+        gx = (idx // G) * gr // G
+        gy = (idx % G) * gr // G
+        hint[empty] = fallback[(gx * gr + gy)[empty]]
+
+    # Pack the q-centred rows and the id as float32, field-major.
+    gmat, bias = _qcentered_host(tri)
+    gmat = gmat.astype(np.float32).reshape(T, 4)
+    bias = bias.astype(np.float32)
+    packed = np.zeros((G * G, 7, K), np.float32)
+    packed[:, 4:6, :] = 1e30
+    packed[:, 6, :] = -1.0
+    for f in range(4):
+        packed[rows_k, f, cols_k] = gmat[tri_k, f]
+    packed[rows_k, 4, cols_k] = bias[tri_k, 0]
+    packed[rows_k, 5, cols_k] = bias[tri_k, 1]
+    packed[rows_k, 6, cols_k] = tri_k.astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=tri.device)
+
+    return CellIndex(
+        table=dev(packed.reshape(G * G, 7 * K)),
+        overflow=dev(overflow),
+        hint=dev(hint),
+        res=G,
+        k=K,
+    )
+
+
+def _device_index_statics(T: int, d: int, grid_res, K):
+    """(G, K, span_cap, P) of the device index build (2D)."""
+    if d != 2:
+        raise NotImplementedError(_INDEX_3D)
+    G = (
+        int(np.clip(int(np.sqrt(max(T, 1) / 2.0)), 16, 2048))
+        if grid_res is None
+        else int(grid_res)
+    )
+    span_cap = 64
+    pair_budget = 8
+    return G, int(K), span_cap, pair_budget * T
+
+
+def _device_index_kernel(
+    tri: DeviceTriangulation, G: int, K: int, span_cap: int, P: int, rank: str
+):
+    """The 2D cell-index build on the triangulation's device.
+
+      1. bounding-box cell ranges per triangle; a triangle whose box spans
+         more than ``span_cap`` cells (a cage sliver) emits nothing and
+         makes the index incomplete;
+      2. a fixed budget of P (triangle, cell) pairs: exclusive-cumsum
+         starts, a scatter-max and a cummax give each pair its triangle,
+         division its cell (pairs past the budget make it incomplete);
+      3. a conservative filter: keep a pair iff the cell centre lies inside
+         every edge's half-plane pushed out by the cell's support on the
+         edge normal plus a float32 slack;
+      4. ranking: each cell keeps its K lowest pair ids (the host's
+         first-K-by-id order), by one sort (``rank="sort"``) or by K
+         scatter-min rounds (``rank="minround"``);
+      5. packing: one row scatter into a row-major table, then one
+         transpose to the field-major [G^2, 7K] layout.
+
+    Returns ``(table, overflow, hint, n_bad)``; ``n_bad`` is the 0-d count
+    of dropped triangles and spilled pairs (0: the index is complete).
+    ``mode="drop"`` writes of the JAX build go to a trash row that is cut
+    off, and the pair starts are int64.
+    """
+    dev = tri.device
+    T = tri.n_tris
+    f32 = torch.float32
+    i64 = torch.int64
+    cell_w = 1.0 / G
+    NC = G * G
+    verts = tri.points_std[tri.tri_verts.long()].to(f32)  # [T, 3, 2]
+    lo = torch.clamp(torch.floor((verts.amin(1) + 0.5) * G), 0, G - 1).long()
+    hi = torch.clamp(torch.floor((verts.amax(1) + 0.5) * G), 0, G - 1).long()
+    spans = hi - lo + 1  # [T, 2]
+    cnt = spans[:, 0] * spans[:, 1]
+    emit = cnt <= span_cap
+    cnt_e = torch.where(emit, cnt, 0)
+    starts = torch.cumsum(cnt_e, 0) - cnt_e
+    total = starts[-1] + cnt_e[-1]
+    n_bad = torch.sum(~emit) + torch.clamp(total - P, min=0)
+
+    # 2. pair -> owning triangle: scatter each emitting triangle's id at its
+    # start (distinct among emitters) and forward-fill by cummax.  Pairs
+    # past the budget decompose to junk cells; a junk pair never contains
+    # a query of its cell, and n_bad > 0 makes every miss walk.
+    ok_sc = (cnt_e > 0) & (starts < P)
+    own = torch.zeros(P + 1, dtype=i64, device=dev).scatter_reduce_(
+        0, torch.where(ok_sc, starts, P), torch.arange(T, device=dev), "amax"
+    )
+    rep = torch.cummax(own[:P], 0).values
+    pidx = torch.arange(P, device=dev)
+    pvalid = pidx < torch.clamp(total, max=P)
+    k_in = pidx - starts[rep]
+    lo_p = lo[rep]
+    sp_x = spans[rep, 0]
+    cx = lo_p[:, 0] + k_in % sp_x
+    cy = lo_p[:, 1] + k_in // sp_x
+    cid = cx * G + cy
+
+    # 3. conservative filter: per-edge coefficients with the support margin
+    # folded into the offset; keep iff ax*Cx + ay*Cy + c0 >= 0 on all edges.
+    slack = 32.0 * machine.eps(np.float32)
+    a, b, c = verts[:, 0], verts[:, 1], verts[:, 2]
+    area = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (
+        b[:, 1] - a[:, 1]
+    ) * (c[:, 0] - a[:, 0])
+    sgn = torch.where(area >= 0, 1.0, -1.0).to(f32)
+    coeff = []
+    for p_, q_ in ((a, b), (b, c), (c, a)):
+        ex = q_[:, 0] - p_[:, 0]
+        ey = q_[:, 1] - p_[:, 1]
+        mag = torch.abs(ex) + torch.abs(ey)
+        c0 = (
+            -sgn * (ex * p_[:, 1] - ey * p_[:, 0])
+            + 0.5 * cell_w * mag
+            + slack * mag
+        )
+        coeff.append(torch.stack([-sgn * ey, sgn * ex, c0], -1))
+    fc = torch.cat(coeff, -1)[rep]  # [P, 9]
+    Cx = (cx.to(f32) + 0.5) * cell_w - 0.5
+    Cy = (cy.to(f32) + 0.5) * cell_w - 0.5
+    keep = pvalid
+    for kf in range(3):
+        v = fc[:, 3 * kf + 2]
+        v = v + fc[:, 3 * kf] * Cx
+        v = v + fc[:, 3 * kf + 1] * Cy
+        keep = keep & (v >= 0)
+    cidk = torch.where(keep, cid, NC)
+
+    # 4. ranking -> per-pair column; col < K wins a table slot.
+    if rank == "sort":
+        # One sort on the unique key (cell, pair id), then rank within the
+        # run of each cell.
+        key, order = torch.sort(cidk * P + pidx)
+        skey = key // P
+        newrun = torch.ones(P, dtype=torch.bool, device=dev)
+        newrun[1:] = skey[1:] != skey[:-1]
+        runstart = torch.cummax(torch.where(newrun, pidx, -1), 0).values
+        srank = torch.clamp(pidx - runstart, max=K)
+        col = torch.full((P,), K, dtype=i64, device=dev)
+        col[order] = torch.where(skey < NC, srank, K)
+    elif rank == "minround":
+        # Pairs are in triangle-id order, so the K smallest pair ids of a
+        # cell are the host's first K.
+        col = torch.full((P,), K, dtype=i64, device=dev)
+        placed = ~keep
+        big = torch.iinfo(i64).max
+        for kk in range(K):
+            cand = torch.where(placed, big, pidx)
+            slot = torch.full((NC + 1,), big, dtype=i64, device=dev)
+            slot.scatter_reduce_(0, cidk, cand, "amin")
+            win = ~placed & (slot[cidk] == pidx)
+            col = torch.where(win, kk, col)
+            placed = placed | win
+    else:
+        raise errors.InvalidArgumentError(f"unknown rank {rank!r}")
+    got = keep & (col < K)
+    overflow = torch.zeros(NC + 1, dtype=torch.bool, device=dev)
+    overflow[torch.where(keep & (col >= K), cid, NC)] = True
+    rowidx = torch.where(got, cid * K + col, NC * K)
+
+    # 5. score fields and packing.
+    A, bias = _qcentered_tables(tri)
+    score = torch.cat(
+        [
+            A.to(f32).reshape(T, 4),
+            bias.to(f32),
+            torch.arange(T, dtype=f32, device=dev)[:, None],
+        ],
+        -1,
+    )  # [T, 7]
+    # hint: the col == 0 winner, else the walk-start bucket grid's simplex.
+    hint = torch.full((NC + 1,), -1, dtype=torch.int32, device=dev)
+    hint[torch.where(got & (col == 0), cid, NC)] = rep.to(torch.int32)
+    gr = tri.grid_res
+    idx = torch.arange(NC, device=dev)
+    fb = tri.grid_tri.reshape(-1)[
+        ((idx // G) * gr // G) * gr + (idx % G) * gr // G
+    ]
+    hint = torch.where(hint[:NC] >= 0, hint[:NC], fb)
+
+    init_row = torch.zeros(7, dtype=f32, device=dev)
+    init_row[4:6] = 1e30
+    init_row[6] = -1.0
+    table_rm = init_row.expand(NC * K + 1, 7).clone()
+    table_rm[rowidx] = score[rep]
+    table = (
+        table_rm[: NC * K].reshape(NC, K, 7).transpose(1, 2).reshape(NC, 7 * K)
+    )
+    return table, overflow[:NC], hint, n_bad
+
+
+def _build_cell_index_device(
+    tri: DeviceTriangulation,
+    grid_res: int | None = None,
+    K: int = 16,
+    rank: str = "sort",
+    pair_budget_override: int | None = None,
+) -> CellIndex:
+    """The cell index built on the triangulation's device
+    (:func:`_device_index_kernel`).  Reads one scalar back, the drop
+    count, to set ``complete``.  ``pair_budget_override`` (pairs per
+    triangle) is a test hook that forces budget spills."""
+    T = tri.n_tris
+    G, K, span_cap, P = _device_index_statics(T, tri.dim, grid_res, K)
+    if pair_budget_override is not None:
+        P = pair_budget_override * T
+    table, overflow, hint, n_bad = _device_index_kernel(
+        tri, G, K, span_cap, P, rank
+    )
+    return CellIndex(
+        table=table,
+        overflow=overflow,
+        hint=hint,
+        res=G,
+        k=K,
+        complete=int(n_bad) == 0,
+    )
+
+
+def locate_cells(
+    tri: DeviceTriangulation,
+    cells: CellIndex,
+    q_raw,
+    fallback_frac: int = 16,
+    fallback: str = "auto",
+    fallback_steps: int = 32,
+):
+    """Batched location by the cell index, with the walk as fallback.
+
+    One [B, 7K] row gather scores the candidates of each query's cell in
+    the query dtype.  The best one's weights come from the anchored affine
+    maps in the query dtype.  Queries that the index cannot settle walk
+    from their cell's hint for at most ``fallback_steps`` steps: those in
+    an overflowed cell or outside the square that no candidate contains,
+    those whose score and weights disagree, and, for an incomplete index,
+    every query that no candidate contains.  ``fallback="none"`` skips the
+    walk: not-contained queries then report in_domain=False.
+
+    The walk takes exactly the queries that need it, found by one host
+    read; ``fallback_frac``, the JAX package's buffer size for them, does
+    not change the result and is accepted for its signature.
+
+    Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
+    """
+    if tri.dim != 2:
+        raise NotImplementedError(_INDEX_3D)
+    del fallback_frac
+    G, K = cells.res, cells.k
+    dtype = q_raw.dtype
+    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+    cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
+    cid = cell[:, 0] * G + cell[:, 1]
+    rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
+    g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
+    shift = tri.shift.to(dtype)
+    qx = (q_raw[:, 0] - shift[0])[:, None]
+    qy = (q_raw[:, 1] - shift[1])[:, None]
+    c0 = g00 * qx + g01 * qy + b0
+    c1 = g10 * qx + g11 * qy + b1
+    minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
+    minw = torch.where(tid >= 0, minw, -torch.inf)
+    best = torch.argmax(minw, dim=-1, keepdim=True)
+    bestw = minw.gather(1, best)[:, 0]
+    leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
+    w = _weights(tri, leaf, q_raw)
+    # The float32 score is judged at float32's slack, the weights at the
+    # query dtype's.
+    contained = bestw >= -4.0 * machine.sqrt_eps(cells.table.dtype)
+    w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(dtype), dim=-1)
+    outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
+    if cells.complete:
+        bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (
+            contained & ~w_ok
+        )
+    else:
+        bad = ~(contained & w_ok)
+    in_domain = contained & w_ok
+    if fallback == "none":
+        return leaf, w, in_domain
+    idx = torch.nonzero(bad)[:, 0]
+    if idx.numel() == 0:
+        return leaf, w, in_domain
+    sub_leaf, sub_w, sub_in = locate(
+        tri, q_raw[idx], start=cells.hint[cid[idx]], max_steps=fallback_steps
+    )
+    leaf[idx] = sub_leaf
+    w[idx] = sub_w
+    in_domain[idx] = sub_in & torch.all(sub_w > -0.5, dim=-1)
+    return leaf, w, in_domain
 
 
 # ---------------------------------------------------------------------------
@@ -477,7 +1143,9 @@ def interp(
     tri: DeviceTriangulation,
     response_ext,
     q_raw,
+    max_steps: int = 256,
     method: str = "auto",
+    cells: CellIndex | None = None,
     resp_tri=None,
 ):
     """Barycentric interpolation at raw query points [B, d], batched.
@@ -486,24 +1154,35 @@ def interp(
     678-711): cage rows of the response are zero (see
     :func:`reindex_response`), and out-of-cage queries return 0.
 
-    method: "auto" takes the route of :func:`auto_method`.  "pallas"
-    forces the locate kernel (its plain version on the CPU), "dense" the
-    matmul brute force; "cells" and "walk" are not ported yet.
+    method: "auto" takes the route of :func:`auto_method`.  "cells" uses
+    ``cells`` (:func:`build_cell_index`), "pallas" the locate kernel (its
+    plain version on the CPU), "dense" the matmul brute force, "walk" the
+    visibility walk of at most ``max_steps`` steps.
     """
     if method == "auto":
         method = auto_method(
-            q_raw.device.type, tri.dim, tri.dtype, tri.n_tris, False
+            q_raw.device.type, tri.dim, tri.dtype, tri.n_tris,
+            cells is not None,
         )
-    if method == "pallas":
+    if method == "cells":
+        if cells is None:
+            raise errors.InvalidArgumentError(
+                "method='cells' needs a CellIndex (build_cell_index)"
+            )
+        leaf, w, in_domain = locate_cells(tri, cells, q_raw)
+    elif method == "pallas":
         leaf = locate_ops.locate_dense_kernel(tri, q_raw)
         w = _weights(tri, leaf, q_raw)
         in_domain = _in_domain(w)
     elif method == "dense":
         leaf, w, in_domain = locate_dense(tri, q_raw)
-    elif method == "cells":
-        raise NotImplementedError(f"the cell index {_LATER}")
+    elif method == "walk":
+        leaf, w, in_domain = locate(tri, q_raw, max_steps=max_steps)
+        # A capped or cycled walk can stop with wildly violated weights
+        # (e.g. at a degenerate simplex): out of domain, not garbage.
+        in_domain = in_domain & torch.all(w > -0.5, dim=-1)
     else:
-        leaf, w, in_domain = locate(tri, q_raw)
+        raise errors.InvalidArgumentError(f"unknown method {method!r}")
     if resp_tri is not None:
         vals = resp_tri[leaf]  # [B, d+1]: one row gather
     else:

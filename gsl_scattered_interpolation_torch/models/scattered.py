@@ -16,7 +16,9 @@ Engines:
     the JAX package.
 
 Evaluation runs on ``device`` through the batched query path
-(models.device_tri).  ``eval_deriv`` returns the piecewise-constant gradient
+(models.device_tri): brute force up to ``DENSE_LOCATE_MAX_TRIS`` simplexes,
+past it a cell index built at the first query and cached, with the
+visibility walk for the queries the index cannot settle.  ``eval_deriv`` returns the piecewise-constant gradient
 of the linear interpolant in the containing simplex.
 """
 
@@ -36,15 +38,6 @@ _NOT_YET = {
     "cavity": "the cavity engine comes with ROADMAP Queue A item 7; "
     "use engine='host'",
 }
-
-
-def _check_locate_limit(n_tris: int) -> None:
-    if n_tris > device_tri.DENSE_LOCATE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tris} simplexes exceed the brute-force locate's "
-            f"{device_tri.DENSE_LOCATE_MAX_TRIS}; the cell index and the "
-            "walk come with ROADMAP Queue A item 5"
-        )
 
 
 class ScatteredInterp:
@@ -94,8 +87,6 @@ class ScatteredInterp:
         self.dim = d
         self.n_sites = n
         if engine == "device":
-            # A 2D build of n sites always holds 2n + 1 triangles.
-            _check_locate_limit(2 * n + 1)
             tri, self.shuffle = device_delaunay.triangulate(
                 sites, lo=lo, hi=hi, flags=flags, key=key, dtype=dtype,
                 grid_res=grid_res, device=device,
@@ -116,7 +107,7 @@ class ScatteredInterp:
                 self.tree, values, device=device
             ).to(dtype)
             self.shuffle = self.tree.shuffle
-            _check_locate_limit(self.tri.n_tris)
+        self._cells = None
 
     # -- evaluation ------------------------------------------------------
 
@@ -124,8 +115,25 @@ class ScatteredInterp:
         q = torch.as_tensor(q, dtype=self.tri.dtype, device=self.tri.device)
         return torch.atleast_2d(q)
 
+    def _get_cells(self):
+        """The cell index, built at the first query past
+        ``DENSE_LOCATE_MAX_TRIS`` simplexes and cached; None below it,
+        where brute force answers."""
+        if (
+            self._cells is None
+            and self.dim in (2, 3)
+            and self.tri.n_tris > device_tri.DENSE_LOCATE_MAX_TRIS
+        ):
+            self._cells = device_tri.build_cell_index(self.tri)
+        return self._cells
+
     def _locate(self, q):
-        return device_tri.locate_dense(self.tri, q)
+        cells = self._get_cells()
+        if cells is not None:
+            return device_tri.locate_cells(self.tri, cells, q)
+        if self.tri.n_tris <= device_tri.DENSE_LOCATE_MAX_TRIS:
+            return device_tri.locate_dense(self.tri, q)
+        return device_tri.locate(self.tri, q)
 
     def eval(self, q, strict: bool = False):
         """Barycentric interpolation at [B, d] raw query points.
@@ -135,7 +143,9 @@ class ScatteredInterp:
         ``strict=True`` raises DomainError if any query is outside the cage.
         """
         q = self._queries(q)
-        vals = device_tri.interp(self.tri, self.response, q)
+        vals = device_tri.interp(
+            self.tri, self.response, q, cells=self._get_cells()
+        )
         if strict:
             _, _, ok = self._locate(q)
             if not bool(torch.all(ok)):

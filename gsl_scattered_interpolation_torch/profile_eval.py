@@ -5,12 +5,16 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 -m gsl_scattered_interpolation_torch.profile_eval
 
 It builds chip_smoke.py's headline problem (2,000 sites uniform in
-[-0.5, 0.5]^2, T = 4,001, batches of 10^6 float32 queries) and then
+[-0.5, 0.5]^2, T = 4,001, batches of 10^6 float32 queries; ``--sites``
+and ``--engine`` change it) and then
 
-1. times each stage of ``device_tri.interp`` alone with CUDA events:
-   packing the locate tables (now done once per triangulation), centring
-   the queries, the locate kernel, the barycentric weights, and the
-   response gather and sum;
+1. times each stage of ``device_tri.interp`` alone with CUDA events.  On
+   the kernel's route (up to ``DENSE_LOCATE_MAX_TRIS`` simplexes): packing
+   the locate tables (done once per triangulation), centring the queries,
+   the locate kernel, the barycentric weights, and the response gather and
+   sum.  On the cell index's route (past it; e.g. ``--engine device
+   --sites 200000``): ``locate_cells`` without and with its walk fallback,
+   and the response gather and sum;
 2. traces a few eval batches with ``torch.profiler`` and prints the ops by
    device time, and the share of the eval's device span in which no
    kernel ran.
@@ -58,6 +62,7 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sites", type=int, default=2000)
+    ap.add_argument("--engine", choices=("host", "device"), default="host")
     ap.add_argument("--batch", type=int, default=1_000_000)
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
@@ -70,31 +75,45 @@ def main(argv=None) -> int:
     sites = rng.uniform(-0.5, 0.5, size=(args.sites, 2))
     values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
     si = ScatteredInterp(
-        sites, values, flags=NOSTANDARDIZE, engine="host", device="cuda"
+        sites, values, flags=NOSTANDARDIZE, engine=args.engine, device="cuda"
     )
     tri, response = si.tri, si.response
+    cells = si._get_cells()
     gen = torch.Generator(device="cuda").manual_seed(1)
     Q = torch.rand(args.batches, args.batch, 2, generator=gen, device="cuda")
     Q = Q * 0.9 - 0.45
     q = Q[0]
 
-    # 1. Stages of interp(method="pallas"), each alone.
-    centre, g_pack, b_pack = locate.pack_tables(tri)
-    qc = (q - centre).contiguous()
-    leaf = locate.locate2d_cuda(qc, g_pack, b_pack)
-    w = device_tri._weights(tri, leaf, q)
-    stages = {
-        "pack_tables": lambda: locate.pack_tables(tri),
-        "centre_queries": lambda: (q - centre).contiguous(),
-        "locate2d": lambda: locate.locate2d_cuda(qc, g_pack, b_pack),
-        "weights_and_domain": lambda: device_tri._in_domain(
-            device_tri._weights(tri, leaf, q)
-        ),
-        "gather_and_sum": lambda: torch.sum(
-            w * response[tri.tri_verts[leaf]], dim=-1
-        ),
-    }
+    # 1. Stages of the eval's route, each alone.
     res = {"B": args.batch, "T": tri.n_tris}
+    if cells is None:
+        res["route"] = "pallas"
+        centre, g_pack, b_pack = locate.pack_tables(tri)
+        qc = (q - centre).contiguous()
+        leaf = locate.locate2d_cuda(qc, g_pack, b_pack)
+        w = device_tri._weights(tri, leaf, q)
+        stages = {
+            "pack_tables": lambda: locate.pack_tables(tri),
+            "centre_queries": lambda: (q - centre).contiguous(),
+            "locate2d": lambda: locate.locate2d_cuda(qc, g_pack, b_pack),
+            "weights_and_domain": lambda: device_tri._in_domain(
+                device_tri._weights(tri, leaf, q)
+            ),
+        }
+    else:
+        res["route"] = "cells"
+        walked = device_tri.locate.queries
+        leaf, w, _ = device_tri.locate_cells(tri, cells, q)
+        res["walked"] = device_tri.locate.queries - walked
+        stages = {
+            "locate_cells_no_walk": lambda: device_tri.locate_cells(
+                tri, cells, q, fallback="none"
+            ),
+            "locate_cells": lambda: device_tri.locate_cells(tri, cells, q),
+        }
+    stages["gather_and_sum"] = lambda: torch.sum(
+        w * response[tri.tri_verts[leaf]], dim=-1
+    )
     res["stage_ms"] = {k: _time_ms(f, args.reps) for k, f in stages.items()}
     res["eval_ms"] = _time_ms(lambda: si.eval(q), args.reps)
 

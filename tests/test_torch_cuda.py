@@ -169,3 +169,64 @@ def test_device_engine_on_card_matches_cpu(cuda):
     assert candmath.edge_candidates_math_cuda.launches > b_cand
     np.testing.assert_array_equal(gpu.tri.tri_verts.cpu().numpy(), cpu.tri.tri_verts.numpy())
     np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-5 * 300)
+
+
+def _at_scale_facades(n_sites, device_gpu):
+    """The device engine's float32 facades of n_sites uniform sites on the
+    card and on the CPU."""
+    sites = np.random.default_rng(5).uniform(-0.5, 0.5, size=(n_sites, 2))
+    vals = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+    kw = dict(flags=host_tree.NOSTANDARDIZE, engine="device", dtype=torch.float32)
+    return ScatteredInterp(sites, vals, **kw), ScatteredInterp(sites, vals, device="cpu", **kw)
+
+
+def test_cell_path_on_card_equals_cpu(cuda):
+    # 20,000 sites: T = 40,001, past the brute-force limit, so eval builds
+    # the host cell index and answers through locate_cells and the walk.
+    gpu, cpu = _at_scale_facades(20_000, cuda)
+    torch.testing.assert_close(gpu.tri.tri_verts.cpu(), cpu.tri.tri_verts, rtol=0, atol=0)
+    Q = np.random.default_rng(6).uniform(-0.5, 0.5, size=(200_000, 2))
+    before = locate.locate2d_cuda.launches
+    v = gpu.eval(Q)
+    assert locate.locate2d_cuda.launches == before  # the cells route
+    gc, cc = gpu._cells, cpu._get_cells()
+    assert gc.table.device.type == "cuda" and gc.complete and cc.complete
+    for name in ("table", "overflow", "hint"):
+        torch.testing.assert_close(getattr(gc, name).cpu(), getattr(cc, name), rtol=0, atol=0)
+    np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-6)
+    leaf, _, ok = device_tri.locate_cells(gpu.tri, gc, gpu._queries(Q))
+    cleaf, _, cok = device_tri.locate_cells(cpu.tri, cc, cpu._queries(Q))
+    assert (leaf.cpu() != cleaf).float().mean() < 1e-3  # edges within f32 noise
+    torch.testing.assert_close(ok.cpu(), cok, rtol=0, atol=0)
+
+
+def test_float64_facade_on_card_keeps_every_query(cuda):
+    # ROADMAP Queue C item 1: a float64 triangulation on the card must not
+    # go to the float32 locate kernel, which dropped 5 of these queries.
+    sites, temps = datasets.weather()
+    Q = np.random.default_rng(2).uniform([-89, 41.2], [-87, 42.8], (200000, 2))
+    gpu = ScatteredInterp(sites, temps, key=0, engine="host", dtype=torch.float64)
+    cpu = ScatteredInterp(sites, temps, key=0, engine="host", device="cpu")
+    before = locate.locate2d_cuda.launches
+    v = gpu.eval(Q)
+    assert locate.locate2d_cuda.launches == before
+    np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("rank", ["sort", "minround"])
+def test_device_index_on_card_equals_cpu(cuda, rank):
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    sites = np.random.default_rng(7).uniform(-0.5, 0.5, size=(5000, 2))
+    cpu, _ = dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, device="cpu")
+    for budget in (None, 1):
+        ours = device_tri._build_cell_index_device(cpu.to(cuda), rank=rank, pair_budget_override=budget)
+        ref = device_tri._build_cell_index_device(cpu, rank=rank, pair_budget_override=budget)
+        assert ours.table.device.type == "cuda" and not ours.complete and not ref.complete
+        for name in ("overflow", "hint"):
+            torch.testing.assert_close(getattr(ours, name).cpu(), getattr(ref, name), rtol=0, atol=0)
+        got = ours.table.cpu().reshape(-1, 7, ours.k)
+        want = ref.table.reshape(-1, 7, ref.k)
+        torch.testing.assert_close(got[:, 6], want[:, 6], rtol=0, atol=0)
+        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1

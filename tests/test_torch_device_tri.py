@@ -176,9 +176,3 @@ def test_from_jax_arrays_round_trip(weather):
         dt.interp(tri, resp, torch.as_tensor(Q)).numpy(), ref, rtol=0, atol=1e-9
     )
     assert tri.to("cpu").cast(torch.float32).dtype == torch.float32
-
-
-@pytest.mark.parametrize("method", ["walk", "cells"])
-def test_later_paths_raise(weather, method):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        dt.interp(weather["tri"], weather["resp"], torch.zeros(1, 2, dtype=torch.float64), method=method)

@@ -37,6 +37,18 @@ sd = ScatteredInterp(sites, temps, key=0, engine="device", device="cpu")
 vd = sd.eval(np.array([[-88.0, 41.5], [1e7, 1e7]]))
 td = chip_smoke.device_triangulation(30, 0, "cpu")
 print(sd.n_simplexes, td.n_tris, float(vd[0]), float(vd[1]))
+from gsl_scattered_interpolation_torch.models import device_tri
+q = np.array([[-88.0, 41.5], [-87.6, 42.1], [-89.4, 41.1], [1e7, 1e7]])
+routes = [sd.eval(q)]
+device_tri.DENSE_LOCATE_MAX_TRIS = 8  # the facade now builds its cell index
+routes.append(sd.eval(q))
+qt = sd._queries(q)
+routes.append(device_tri.interp(sd.tri, sd.response, qt, method="walk"))
+cells = device_tri._build_cell_index_device(sd.tri)
+routes.append(device_tri.interp(sd.tri, sd.response, qt, method="cells", cells=cells))
+print(sd._cells is not None, cells.complete)
+for v in routes:
+    print(*(float(x) for x in v))
 """
 
 
@@ -77,3 +89,10 @@ def test_slice_runs_with_jax_blocked():
     # Both engines triangulate the weather set alike away from its
     # cocircular quad, so this query gets the same value.
     assert float(lines[0].split()[2]) == pytest.approx(float(lines[1].split()[2]), abs=1e-9)
+    # Brute force, the facade's lazy cell index, the walk and the device
+    # index give the device engine's values alike.
+    assert lines[2].split() == ["True", "False"]
+    dense, *others = (np.array(line.split(), float) for line in lines[3:7])
+    assert dense[-1] == 0.0 and np.all(np.isfinite(dense))
+    for v in others:
+        np.testing.assert_allclose(v, dense, rtol=0, atol=1e-9)

@@ -137,27 +137,6 @@ def test_auto_route_keeps_every_query(weather, reanchor_queries, device_type, dt
         assert np.sum(np.abs(lost - ref) > 1.0) > 0
 
 
-def test_past_brute_force_limit_raises(weather, monkeypatch):
-    sites, temps, *_ = weather
-    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 50)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ScatteredInterp(sites, temps, engine="host", device="cpu")
-
-
-def test_device_engine_checks_the_limit_before_building(weather, monkeypatch):
-    from gsl_scattered_interpolation_torch.models import device_delaunay
-
-    sites, temps, *_ = weather
-    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 2 * len(sites))
-
-    def no_build(*args, **kwargs):
-        raise AssertionError("the build ran")
-
-    monkeypatch.setattr(device_delaunay, "triangulate", no_build)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ScatteredInterp(sites, temps, engine="device", device="cpu")
-
-
 def test_host_engine_any_dimension():
     rng = np.random.default_rng(4)
     sites = rng.uniform(-0.5, 0.5, size=(15, 4))
@@ -255,3 +234,70 @@ def test_device_engine_headline_path_matches_jax():
 def test_device_engine_limits():
     with pytest.raises(NotImplementedError, match="2D"):
         ScatteredInterp(np.zeros((5, 3)), np.zeros(5), engine="device", device="cpu")
+
+
+def _jax_facade_at_scale(monkeypatch, sites, vals):
+    """The JAX facade (auto = device engine) with the brute-force limit set
+    low, so that it answers through its lazy cell index."""
+    monkeypatch.setattr(jdt, "DENSE_LOCATE_MAX_TRIS", 8)
+    return JaxInterp(sites, vals, key=0)
+
+
+def _same_surfaces(si, ref, Q):
+    """eval, eval_e and eval_deriv of the port and the JAX facade agree to
+    1e-9 in float64."""
+    v = si.eval(Q)
+    np.testing.assert_allclose(v.numpy(), np.asarray(ref.eval(Q)), rtol=0, atol=1e-9)
+    vals, status = si.eval_e(Q)
+    jv, js = ref.eval_e(Q)
+    np.testing.assert_array_equal(status.numpy(), np.asarray(js))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(si.eval_deriv(Q).numpy(), np.asarray(ref.eval_deriv(Q)),
+                               rtol=1e-9, atol=1e-9)
+    return v
+
+
+def test_lazy_cell_index_path(monkeypatch):
+    # tests/test_scattered_api.py::TestFacadeAtScale::test_lazy_cell_index_path,
+    # held against the JAX facade on the same permutation.
+    rng = np.random.default_rng(3)
+    sites = rng.uniform(-0.5, 0.5, size=(600, 2))
+    vals = np.sin(3 * sites[:, 0]) + sites[:, 1]
+    ref = _jax_facade_at_scale(monkeypatch, sites, vals)
+    si = ScatteredInterp(sites, vals, key=np.asarray(ref.shuffle), device="cpu")
+    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 8)
+    Q = rng.uniform(-0.45, 0.45, size=(500, 2))
+    v = _same_surfaces(si, ref, Q)
+    cells = si._cells
+    assert cells is not None and cells.complete
+    assert si._get_cells() is cells  # built once, then cached
+    dense = device_tri.interp(si.tri, si.response, si._queries(Q), method="dense")
+    np.testing.assert_allclose(v.numpy(), dense.numpy(), rtol=0, atol=1e-9)
+    assert int(si.eval_e(Q)[1].max()) == 0
+
+
+@pytest.mark.parametrize("index", ["host", "device"])
+def test_slice_at_scale_end_to_end_matches_jax(monkeypatch, index):
+    # The at-scale path at a small size: a 1,000-site device build in
+    # float64 past a lowered brute-force limit, so the facade builds its
+    # cell index (on the host, or by the device build) and answers through
+    # locate_cells and the walk.  Queries include out-of-square, cage and
+    # out-of-cage points.
+    rng = np.random.default_rng(9)
+    sites = rng.uniform(-0.5, 0.5, size=(1000, 2))
+    vals = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+    ref = _jax_facade_at_scale(monkeypatch, sites, vals)
+    if index == "device":
+        monkeypatch.setattr(device_tri, "DEVICE_INDEX_MIN_TRIS", 8)
+    si = ScatteredInterp(sites, vals, key=np.asarray(ref.shuffle), engine="device", device="cpu")
+    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 8)
+    Q = np.concatenate([
+        rng.uniform(-0.5, 0.5, size=(3000, 2)),
+        [[0.7, 0.0], [-3.0, 0.2], [1e7, 1e7]],
+    ])
+    walked = device_tri.locate.queries
+    v = _same_surfaces(si, ref, Q)
+    assert si._cells.complete == (index == "host")
+    assert device_tri.locate.queries > walked  # the walk took the misses
+    assert v[-1] == 0.0
+    np.testing.assert_array_equal(si.tri.tri_verts.numpy(), np.asarray(ref.tri.tri_verts))
