@@ -71,12 +71,15 @@ def require(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def headline_values(sites):
+    """bench.py's test function at ``sites``."""
+    return np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+
+
 def headline_problem(n_sites: int, seed: int):
     """Sites uniform in [-0.5, 0.5]^2 and bench.py's test function."""
-    rng = np.random.default_rng(seed)
-    sites = rng.uniform(-0.5, 0.5, size=(n_sites, 2))
-    values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
-    return sites, values
+    sites = np.random.default_rng(seed).uniform(-0.5, 0.5, size=(n_sites, 2))
+    return sites, headline_values(sites)
 
 
 def uniform_queries(n: int, seed: int, device, batches: int = 1):
@@ -489,6 +492,14 @@ def build_at_scale(sites, dtype, device):
     return rec, (sd if dtype == torch.float64 else None)
 
 
+def sync(device) -> None:
+    """Wait for the card, if ``device`` is one."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
               engine: str):
     """Build the facade with ``engine`` and evaluate ``n_batches`` query
@@ -502,22 +513,18 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
     from scipy.interpolate import LinearNDInterpolator
 
     sites, values = headline_problem(n_sites, seed=0)
-    cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     si = ScatteredInterp(
         sites, values, flags=NOSTANDARDIZE, engine=engine, device=device
     )
-    if cuda:
-        torch.cuda.synchronize()
+    sync(device)
     build_s = time.perf_counter() - t0
     Q = uniform_queries(batch, seed=1, device=device, batches=n_batches)
 
-    if cuda:
-        torch.cuda.synchronize()
+    sync(device)
     t0 = time.perf_counter()
     outs = [si.eval(Q[i]) for i in range(n_batches)]
-    if cuda:
-        torch.cuda.synchronize()
+    sync(device)
     eval_s = time.perf_counter() - t0
 
     out0 = outs[0][:n_check]
@@ -562,14 +569,6 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
     return res
 
 
-def sync(device) -> None:
-    """Wait for the card, if ``device`` is one."""
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
     """The at-scale query path on the card: ``ScatteredInterp`` with
     ``engine="device"`` of ``sites`` (the headline's test function), its
@@ -587,7 +586,7 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
     from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
     from gsl_scattered_interpolation_torch.ops import candmath, locate
 
-    values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+    values = headline_values(sites)
     f32 = dtype == torch.float32
     locate.locate2d_cuda.launches = 0
     candmath.edge_candidates_math_cuda.launches = 0

@@ -498,7 +498,7 @@ def locate(
         outside = outside | (hit_boundary & ~done)
         done = ~advance
         prev = torch.where(advance, cur, prev)
-        cur = torch.where(advance, torch.where(nbr < 0, cur, nbr), cur)
+        cur = torch.where(advance, nbr, cur)  # an advancing nbr is >= 0
         step += 1
     locate.queries += B
     locate.steps += step

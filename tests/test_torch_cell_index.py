@@ -12,6 +12,7 @@ from gsl_scattered_interpolation_tpu.models import host_tree as jht
 
 from gsl_scattered_interpolation_torch.models import convert
 from gsl_scattered_interpolation_torch.models import device_tri as dt
+from gsl_scattered_interpolation_torch.utils import errors
 
 
 def _port(jtri):
@@ -232,11 +233,11 @@ def test_auto_method_threshold(monkeypatch):
 def test_arguments_checked():
     _, tri = _tri(300, 9)
     Q = torch.zeros(1, 2, dtype=torch.float64)
-    with pytest.raises(Exception, match="CellIndex"):
+    with pytest.raises(errors.InvalidArgumentError, match="CellIndex"):
         dt.interp(tri, torch.zeros(303, dtype=torch.float64), Q, method="cells")
-    with pytest.raises(Exception, match="unknown method"):
+    with pytest.raises(errors.InvalidArgumentError, match="unknown method"):
         dt.interp(tri, torch.zeros(303, dtype=torch.float64), Q, method="nope")
-    with pytest.raises(Exception, match="unknown rank"):
+    with pytest.raises(errors.InvalidArgumentError, match="unknown rank"):
         dt._build_cell_index_device(tri, rank="nope")
     sites3 = np.random.default_rng(2).uniform(-0.5, 0.5, size=(30, 3))
     tri3 = _port(jdt.freeze(jht.build(sites3, flags=jht.NOSTANDARDIZE)))

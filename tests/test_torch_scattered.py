@@ -301,3 +301,12 @@ def test_slice_at_scale_end_to_end_matches_jax(monkeypatch, index):
     assert device_tri.locate.queries > walked  # the walk took the misses
     assert v[-1] == 0.0
     np.testing.assert_array_equal(si.tri.tri_verts.numpy(), np.asarray(ref.tri.tri_verts))
+
+
+def test_3d_past_the_limit_waits_for_the_3d_index(monkeypatch):
+    rng = np.random.default_rng(4)
+    si = ScatteredInterp(rng.uniform(-0.5, 0.5, size=(15, 3)), rng.normal(size=15),
+                         engine="host", device="cpu")
+    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 8)
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        si.eval(rng.uniform(-0.2, 0.2, size=(5, 3)))
