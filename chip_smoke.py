@@ -19,9 +19,9 @@ way: ``ScatteredInterp(engine="device")`` of the 200,000 sites (T = 400,001)
 builds its cell index on the card and answers 10 batches of a million
 float32 queries through ``locate_cells`` and the walk, checked against the
 locate kernel forced at that T and against scipy; then one batch through
-the float64 build (against scipy at 1e-9), one through 20,000 sites (host
-index), and the times of the kernel, the cell index and the walk per
-million queries at four T.  Everything is timed.
+the float64 build (against scipy at 1e-9), one through 20,000 sites, and,
+at four T, the times of the kernel, the cell index and the walk per million
+queries and of the index's host and device builds.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -51,7 +51,7 @@ EVAL_VS_SCIPY_MAX = 1e-4   # float32 values of O(1)
 SCIPY_AGREE_MIN = 0.995    # share of the f32 build's data triangles in scipy's
 EVAL_VS_SCIPY_F64_MAX = 1e-9  # the JAX package's float64 tolerance
 LEAF_MISMATCH_MAX = 0.01   # bench.py's boundary check against the kernel
-N_SCALE_SMALL = 20_000     # T = 40,001: the host rasterizer builds the index
+N_SCALE_SMALL = 20_000     # T = 40,001
 # H100 SXM data sheet: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
 # the tensor cores count an FMA as two operations, so one non-FMA
 # instruction per lane and clock is 33.5e12 (float32) and 17e12 (float64)
@@ -617,7 +617,7 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
     rec = {
         "dtype": str(dtype).split(".")[-1], "n_sites": sites.shape[0],
         "n_simplexes": T, "build_s": build_s,
-        "index_method": "device" if T >= device_tri.DEVICE_INDEX_MIN_TRIS else "host",
+        "index_method": device_tri.auto_index_method(si.tri.device.type, T),
         "index_s": index_s, "G": cells.res, "K": cells.k,
         "table_MB": cells.table.numel() * 4 / 1e6, "complete": cells.complete,
         "overflow_cells": int(cells.overflow.sum()),
@@ -659,16 +659,25 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
 
 def crossover(cases, device="cuda"):
     """Milliseconds per million f32 queries of ``interp`` through the
-    locate kernel, the cell index and the walk, for each (triangulation,
-    response, cell index or None to build one) case."""
+    locate kernel, the cell index and the walk, and seconds of the cell
+    index's host and device builds (after one untimed device build), for
+    each (triangulation, response, cell index or None to build one)
+    case."""
     from gsl_scattered_interpolation_torch.models import device_tri
 
     q = uniform_queries(BATCH, seed=6, device=device)[0]
     out = []
     for tri, resp, cells in cases:
-        if cells is None:
-            cells = device_tri.build_cell_index(tri)
         rec = {"T": tri.n_tris, "B": int(q.shape[0])}
+        device_tri.build_cell_index(tri, method="device")
+        for method in ("host", "device"):
+            sync(device)
+            t0 = time.perf_counter()
+            built = device_tri.build_cell_index(tri, method=method)
+            sync(device)
+            rec[f"index_{method}_s"] = time.perf_counter() - t0
+        if cells is None:
+            cells = built
         for method in ("pallas", "cells", "walk"):
             reps = 2 if method == "pallas" and tri.n_tris > 100_000 else 5
             rec[f"{method}_ms"] = time_ms(
@@ -765,9 +774,10 @@ def main() -> int:
     require(dev["candmath2d_launches"] > 0, "the device path never launched candmath2d")
     log(f"phase main path device: {time.perf_counter() - t0:.2f} s")
 
-    # 7. The at-scale query path: the 200k sites (T = 400,001, device
-    # index) in float32 and float64, and 20,000 sites (T = 40,001, host
-    # index); then the crossover of the kernel, the index and the walk.
+    # 7. The at-scale query path: the 200k sites (T = 400,001) in float32
+    # and float64, and 20,000 sites (T = 40,001), each with the index that
+    # build_cell_index(method="auto") picks; then the crossover of the
+    # kernel, the index and the walk, and of the index's two builds.
     t0 = time.perf_counter()
     at_scale, facades = {}, {}
     at_scale["f32_200k"], facades["f32_200k"] = at_scale_query(

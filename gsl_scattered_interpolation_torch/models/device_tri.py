@@ -526,8 +526,8 @@ def walk_start(tri: DeviceTriangulation, q_raw) -> torch.Tensor:
 # Cell-candidate point location (the large-T path)
 # ---------------------------------------------------------------------------
 
-# build_cell_index(method="auto") builds on the device from this many 2D
-# simplexes on (the JAX package's threshold).
+# build_cell_index(method="auto") builds a CPU triangulation's index on the
+# CPU from this many 2D simplexes on (the JAX package's threshold).
 DEVICE_INDEX_MIN_TRIS = 200_000
 _INDEX_3D = "the 3D cell index comes with ROADMAP Queue A item 7"
 
@@ -633,6 +633,19 @@ def _qcentered_host(tri: DeviceTriangulation):
     return g, bias
 
 
+def auto_index_method(device_type: str, n_tris: int) -> str:
+    """The build that ``build_cell_index(method="auto")`` takes.
+
+    On CUDA always the device build: the numpy rasterizer would copy the
+    triangulation to the host and the table back.  On the CPU the numpy
+    rasterizer below ``DEVICE_INDEX_MIN_TRIS`` simplexes, which lists every
+    intersection (a complete index), and the device build from there.
+    """
+    if device_type == "cuda" or n_tris >= DEVICE_INDEX_MIN_TRIS:
+        return "device"
+    return "host"
+
+
 def build_cell_index(
     tri: DeviceTriangulation,
     grid_res: int | None = None,
@@ -648,15 +661,15 @@ def build_cell_index(
 
     ``method``: "host" is the numpy rasterizer (always complete); "device"
     builds on the triangulation's device (:func:`_build_cell_index_device`);
-    "auto" picks the device from ``DEVICE_INDEX_MIN_TRIS`` triangles on.
-    The result's tensors lie on the triangulation's device.
+    "auto" takes :func:`auto_index_method`.  The result's tensors lie on
+    the triangulation's device.
     """
     if tri.dim == 3:
         raise NotImplementedError(_INDEX_3D)
     if tri.dim != 2:
         raise NotImplementedError("cell index is 2D/3D")
     if method == "auto":
-        method = "device" if tri.n_tris >= DEVICE_INDEX_MIN_TRIS else "host"
+        method = auto_index_method(tri.device.type, tri.n_tris)
     if method == "device":
         return _build_cell_index_device(tri, grid_res, K)
     if method != "host":
@@ -847,7 +860,7 @@ def _device_index_statics(T: int, d: int, grid_res, K):
 
 
 def _device_index_kernel(
-    tri: DeviceTriangulation, G: int, K: int, span_cap: int, P: int, rank: str
+    tri: DeviceTriangulation, G: int, K: int, span_cap: int, P: int
 ):
     """The 2D cell-index build on the triangulation's device.
 
@@ -861,8 +874,7 @@ def _device_index_kernel(
          every edge's half-plane pushed out by the cell's support on the
          edge normal plus a float32 slack;
       4. ranking: each cell keeps its K lowest pair ids (the host's
-         first-K-by-id order), by one sort (``rank="sort"``) or by K
-         scatter-min rounds (``rank="minround"``);
+         first-K-by-id order), by one sort;
       5. packing: one row scatter into a row-major table, then one
          transpose to the field-major [G^2, 7K] layout.
 
@@ -937,32 +949,16 @@ def _device_index_kernel(
     cidk = torch.where(keep, cid, NC)
 
     # 4. ranking -> per-pair column; col < K wins a table slot.
-    if rank == "sort":
-        # One sort on the unique key (cell, pair id), then rank within the
-        # run of each cell.
-        key, order = torch.sort(cidk * P + pidx)
-        skey = key // P
-        newrun = torch.ones(P, dtype=torch.bool, device=dev)
-        newrun[1:] = skey[1:] != skey[:-1]
-        runstart = torch.cummax(torch.where(newrun, pidx, -1), 0).values
-        srank = torch.clamp(pidx - runstart, max=K)
-        col = torch.full((P,), K, dtype=i64, device=dev)
-        col[order] = torch.where(skey < NC, srank, K)
-    elif rank == "minround":
-        # Pairs are in triangle-id order, so the K smallest pair ids of a
-        # cell are the host's first K.
-        col = torch.full((P,), K, dtype=i64, device=dev)
-        placed = ~keep
-        big = torch.iinfo(i64).max
-        for kk in range(K):
-            cand = torch.where(placed, big, pidx)
-            slot = torch.full((NC + 1,), big, dtype=i64, device=dev)
-            slot.scatter_reduce_(0, cidk, cand, "amin")
-            win = ~placed & (slot[cidk] == pidx)
-            col = torch.where(win, kk, col)
-            placed = placed | win
-    else:
-        raise errors.InvalidArgumentError(f"unknown rank {rank!r}")
+    # Pairs are in triangle-id order, so one sort on the unique key (cell,
+    # pair id) puts each cell's run in the host's first-K-by-id order.
+    key, order = torch.sort(cidk * P + pidx)
+    skey = key // P
+    newrun = torch.ones(P, dtype=torch.bool, device=dev)
+    newrun[1:] = skey[1:] != skey[:-1]
+    runstart = torch.cummax(torch.where(newrun, pidx, -1), 0).values
+    srank = torch.clamp(pidx - runstart, max=K)
+    col = torch.full((P,), K, dtype=i64, device=dev)
+    col[order] = torch.where(skey < NC, srank, K)
     got = keep & (col < K)
     overflow = torch.zeros(NC + 1, dtype=torch.bool, device=dev)
     overflow[torch.where(keep & (col >= K), cid, NC)] = True
@@ -1003,7 +999,6 @@ def _build_cell_index_device(
     tri: DeviceTriangulation,
     grid_res: int | None = None,
     K: int = 16,
-    rank: str = "sort",
     pair_budget_override: int | None = None,
 ) -> CellIndex:
     """The cell index built on the triangulation's device
@@ -1015,7 +1010,7 @@ def _build_cell_index_device(
     if pair_budget_override is not None:
         P = pair_budget_override * T
     table, overflow, hint, n_bad = _device_index_kernel(
-        tri, G, K, span_cap, P, rank
+        tri, G, K, span_cap, P
     )
     return CellIndex(
         table=table,
@@ -1031,7 +1026,6 @@ def locate_cells(
     tri: DeviceTriangulation,
     cells: CellIndex,
     q_raw,
-    fallback_frac: int = 16,
     fallback: str = "auto",
     fallback_steps: int = 32,
 ):
@@ -1047,14 +1041,12 @@ def locate_cells(
     walk: not-contained queries then report in_domain=False.
 
     The walk takes exactly the queries that need it, found by one host
-    read; ``fallback_frac``, the JAX package's buffer size for them, does
-    not change the result and is accepted for its signature.
+    read, so the JAX package's ``fallback_frac`` buffer has no counterpart.
 
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
     """
     if tri.dim != 2:
         raise NotImplementedError(_INDEX_3D)
-    del fallback_frac
     G, K = cells.res, cells.k
     dtype = q_raw.dtype
     q_std = geometry.standardize(q_raw, tri.shift, tri.scale)

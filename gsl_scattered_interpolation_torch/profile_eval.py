@@ -6,15 +6,15 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
 It builds chip_smoke.py's headline problem (2,000 sites uniform in
 [-0.5, 0.5]^2, T = 4,001, batches of 10^6 float32 queries; ``--sites``
-and ``--engine`` change it) and then
+changes it) with ``engine="device"`` and then
 
 1. times each stage of ``device_tri.interp`` alone with CUDA events.  On
    the kernel's route (up to ``DENSE_LOCATE_MAX_TRIS`` simplexes): packing
    the locate tables (done once per triangulation), centring the queries,
    the locate kernel, the barycentric weights, and the response gather and
-   sum.  On the cell index's route (past it; e.g. ``--engine device
-   --sites 200000``): ``locate_cells`` without and with its walk fallback,
-   and the response gather and sum;
+   sum.  On the cell index's route (past it; e.g. ``--sites 200000``):
+   ``locate_cells`` without and with its walk fallback, and the response
+   gather and sum;
 2. traces a few eval batches with ``torch.profiler`` and prints the ops by
    device time, and the share of the eval's device span in which no
    kernel ran.
@@ -62,7 +62,6 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sites", type=int, default=2000)
-    ap.add_argument("--engine", choices=("host", "device"), default="host")
     ap.add_argument("--batch", type=int, default=1_000_000)
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
@@ -75,7 +74,7 @@ def main(argv=None) -> int:
     sites = rng.uniform(-0.5, 0.5, size=(args.sites, 2))
     values = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
     si = ScatteredInterp(
-        sites, values, flags=NOSTANDARDIZE, engine=args.engine, device="cuda"
+        sites, values, flags=NOSTANDARDIZE, engine="device", device="cuda"
     )
     tri, response = si.tri, si.response
     cells = si._get_cells()

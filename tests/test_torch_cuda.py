@@ -182,17 +182,23 @@ def _at_scale_facades(n_sites, device_gpu):
 
 def test_cell_path_on_card_equals_cpu(cuda):
     # 20,000 sites: T = 40,001, past the brute-force limit, so eval builds
-    # the host cell index and answers through locate_cells and the walk.
+    # the cell index on the card (the device build, as for any CUDA
+    # triangulation) and answers through locate_cells and the walk.  The
+    # CPU facade is given the same build.
     gpu, cpu = _at_scale_facades(20_000, cuda)
     torch.testing.assert_close(gpu.tri.tri_verts.cpu(), cpu.tri.tri_verts, rtol=0, atol=0)
     Q = np.random.default_rng(6).uniform(-0.5, 0.5, size=(200_000, 2))
     before = locate.locate2d_cuda.launches
     v = gpu.eval(Q)
     assert locate.locate2d_cuda.launches == before  # the cells route
-    gc, cc = gpu._cells, cpu._get_cells()
-    assert gc.table.device.type == "cuda" and gc.complete and cc.complete
-    for name in ("table", "overflow", "hint"):
+    gc = gpu._cells
+    cc = cpu._cells = device_tri.build_cell_index(cpu.tri, method="device")
+    assert gc.table.device.type == "cuda" and gc.complete == cc.complete
+    for name in ("overflow", "hint"):
         torch.testing.assert_close(getattr(gc, name).cpu(), getattr(cc, name), rtol=0, atol=0)
+    got, want = gc.table.cpu().reshape(-1, 7, gc.k), cc.table.reshape(-1, 7, cc.k)
+    torch.testing.assert_close(got[:, 6], want[:, 6], rtol=0, atol=0)
+    assert int((got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max()) <= 1
     np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-6)
     leaf, _, ok = device_tri.locate_cells(gpu.tri, gc, gpu._queries(Q))
     cleaf, _, cok = device_tri.locate_cells(cpu.tri, cc, cpu._queries(Q))
@@ -213,20 +219,19 @@ def test_float64_facade_on_card_keeps_every_query(cuda):
     np.testing.assert_allclose(v.cpu().numpy(), cpu.eval(Q).numpy(), rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("rank", ["sort", "minround"])
-def test_device_index_on_card_equals_cpu(cuda, rank):
+@pytest.mark.parametrize("budget", [None, 1])
+def test_device_index_on_card_equals_cpu(cuda, budget):
     from gsl_scattered_interpolation_torch.models import device_delaunay as dd
 
     sites = np.random.default_rng(7).uniform(-0.5, 0.5, size=(5000, 2))
     cpu, _ = dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, device="cpu")
-    for budget in (None, 1):
-        ours = device_tri._build_cell_index_device(cpu.to(cuda), rank=rank, pair_budget_override=budget)
-        ref = device_tri._build_cell_index_device(cpu, rank=rank, pair_budget_override=budget)
-        assert ours.table.device.type == "cuda" and not ours.complete and not ref.complete
-        for name in ("overflow", "hint"):
-            torch.testing.assert_close(getattr(ours, name).cpu(), getattr(ref, name), rtol=0, atol=0)
-        got = ours.table.cpu().reshape(-1, 7, ours.k)
-        want = ref.table.reshape(-1, 7, ref.k)
-        torch.testing.assert_close(got[:, 6], want[:, 6], rtol=0, atol=0)
-        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
-        assert int(ulps.max()) <= 1
+    ours = device_tri._build_cell_index_device(cpu.to(cuda), pair_budget_override=budget)
+    ref = device_tri._build_cell_index_device(cpu, pair_budget_override=budget)
+    assert ours.table.device.type == "cuda" and not ours.complete and not ref.complete
+    for name in ("overflow", "hint"):
+        torch.testing.assert_close(getattr(ours, name).cpu(), getattr(ref, name), rtol=0, atol=0)
+    got = ours.table.cpu().reshape(-1, 7, ours.k)
+    want = ref.table.reshape(-1, 7, ref.k)
+    torch.testing.assert_close(got[:, 6], want[:, 6], rtol=0, atol=0)
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1
