@@ -21,7 +21,14 @@ float32 queries through ``locate_cells`` and the walk, checked against the
 locate kernel forced at that T and against scipy; then one batch through
 the float64 build (against scipy at 1e-9), one through 20,000 sites, and,
 at four T, the times of the kernel, the cell index and the walk per million
-queries and of the index's host and device builds.  Everything is timed.
+queries and of the index's host and device builds.  Then the build at 1M
+(bench.py's build configuration): the flip-candidate kernel against its
+plain version on the chunked route's compacted rows, then
+``ScatteredInterp(engine="device")`` of 1,000,000 sites in float32, seeded
+from Qhull, counted from zero, checked as the 200k build is, with 10
+batches of a million queries through its cell index against the locate
+kernel and scipy, and the same in float64 with one batch.  Everything is
+timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -31,6 +38,8 @@ fails, it exits non-zero and prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import json
 import subprocess
 import sys
@@ -52,6 +61,9 @@ SCIPY_AGREE_MIN = 0.995    # share of the f32 build's data triangles in scipy's
 EVAL_VS_SCIPY_F64_MAX = 1e-9  # the JAX package's float64 tolerance
 LEAF_MISMATCH_MAX = 0.01   # bench.py's boundary check against the kernel
 N_SCALE_SMALL = 20_000     # T = 40,001
+N_1M = 1_000_000           # bench.py's build: default_rng(7), grid_res 512
+SEED_1M = 7
+GRID_RES_1M = 512
 # H100 SXM data sheet: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
 # the tensor cores count an FMA as two operations, so one non-FMA
 # instruction per lane and clock is 33.5e12 (float32) and 17e12 (float64)
@@ -60,6 +72,7 @@ F32_OPS_PER_S = 33.5e12
 F64_OPS_PER_S = 17e12
 HBM_BYTES_PER_S = 3.35e12
 LOCATE_OPS_PER_PAIR = 13   # 4 mul, 4 add, 2 sub, 2 min, 1 compare
+SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: kernel_ms
 
 
 def log(msg: str) -> None:
@@ -133,6 +146,33 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``, a kernel launch, by CUDA
+    events around ``reps`` calls that the host queues while the card
+    sleeps: so the card runs them back to back, where :func:`time_ms`
+    also carries the host's cost of each call whenever that exceeds the
+    kernel's.  Fails if the host took longer to queue them than the card
+    slept."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    slept_ms = ev[0].elapsed_time(ev[1])
+    require(queued_ms < slept_ms,
+            f"queueing took {queued_ms:.3f} ms, the card slept {slept_ms:.3f} ms")
+    return ev[1].elapsed_time(ev[2]) / reps
 
 
 def locate_bound_ms(n_q: int, n_t: int):
@@ -294,36 +334,81 @@ def candmath_inputs(pts, st):
     return args, kargs
 
 
+def candmath_record(args, kargs, timed: bool, **labels):
+    """The candidate kernel against its plain version on one input; with
+    ``timed``, the times of both and the kernel's bound."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    ref = candmath.edge_candidates_math_ref(*args)
+    got = candmath.edge_candidates_math_cuda(*kargs)
+    torch.cuda.synchronize()
+    R = int(ref.shape[0])
+    rec = {
+        **labels, "dtype": str(args[0].dtype).split(".")[-1], "rows": R,
+        "mismatches": int((got != ref).sum()),
+        "max_abs_err": float((got != ref).any()),
+        "candidates": int(ref.sum()),
+    }
+    if timed:
+        def launch():
+            return candmath.edge_candidates_math_cuda(*kargs)
+
+        rec["ms"] = kernel_ms(launch)
+        rec["events_ms"] = time_ms(launch, 20)
+        rec["plain_ms"] = time_ms(lambda: candmath.edge_candidates_math_ref(*args), 3)
+        rec["bound_ms"], rec["bound_by"] = candmath_bound_ms(
+            R, args[0].dtype == torch.float64
+        )
+    log(f"candmath2d kernel vs plain: {json.dumps(rec)}")
+    require(rec["mismatches"] == 0, f"candmath2d disagrees with its plain version: {rec}")
+    return rec
+
+
 def check_candmath(sites, dtype, device):
     """Kernel against plain version at the three states; the times at the
     finished state.  Returns a list of records."""
     import torch
 
-    from gsl_scattered_interpolation_torch.ops import candmath
-
     pts = torch.as_tensor(build_points(sites, dtype), dtype=dtype, device=device)
     recs = []
     for label, st in build_states(pts).items():
         args, kargs = candmath_inputs(pts, st)
-        ref = candmath.edge_candidates_math_ref(*args)
-        got = candmath.edge_candidates_math_cuda(*kargs)
-        torch.cuda.synchronize()
-        R = int(ref.shape[0])
-        rec = {
-            "state": label, "dtype": str(dtype).split(".")[-1], "rows": R,
-            "mismatches": int((got != ref).sum()),
-            "max_abs_err": float((got != ref).any()),
-            "candidates": int(ref.sum()),
-        }
-        if label == "final":
-            rec["ms"] = time_ms(lambda: candmath.edge_candidates_math_cuda(*kargs), 20)
-            rec["plain_ms"] = time_ms(lambda: candmath.edge_candidates_math_ref(*args), 3)
-            rec["bound_ms"], rec["bound_by"] = candmath_bound_ms(
-                R, dtype == torch.float64
-            )
-        log(f"candmath2d kernel vs plain: {json.dumps(rec)}")
-        require(rec["mismatches"] == 0, f"candmath2d disagrees with its plain version: {rec}")
+        rec = candmath_record(args, kargs, label == "final", state=label)
         require(label == "final" or rec["candidates"] > 0, f"no candidates: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def check_candmath_compact(sites, device="cuda"):
+    """Kernel against plain version on the chunked route's compacted rows:
+    the float32 build of ``sites`` from its Qhull seed through one split
+    round, then its dirty rows compacted to the big rung's R_COMPACT and
+    the tail rung's R_TAIL rows, as its first flip round gathers them.
+    Returns the records, timed."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import host_tree
+
+    *_, cage, std = dd.build_inputs(sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float32)
+    pts, st, dirty = dd._seed_state_2d(std, cage.to(device))
+    M = st.tri_v.shape[0] - 1
+    R_s = max(min(dd.R_COMPACT // 2, M // 4), 1)
+    st, dirty, _ = dd._split_round_compact(pts, st, dirty, R_s, dd.R_SITE)
+    n_dirty = int(dirty[:M].sum())
+    recs = []
+    for R in (dd.R_COMPACT, dd.R_TAIL):
+        require(n_dirty >= R, f"{n_dirty} dirty rows fill no {R}-row workspace")
+        rows = dd._compact_rows(dirty[:M], R)
+        _, _, args = dd._edge_candidate_inputs(
+            pts, st.tri_v, st.tri_n, st.cc, rows, rows >= 0
+        )
+        apex3, fq3, tv, _, far3, _, valid3, cok, degen_u = args
+        kargs = tuple(a.contiguous() for a in (apex3, fq3, tv, far3, valid3, cok, degen_u))
+        rec = candmath_record(args, kargs, True, state="1M compact")
+        require(rec["candidates"] > 0, f"no candidates: {rec}")
         recs.append(rec)
     return recs
 
@@ -398,22 +483,79 @@ def _holds_cage(cage, a, b, c) -> bool:
     return any(_incircle_exact(a, b, c, v) * o > 0 for v in cage)
 
 
+def check_triangulation(tri, sites, dtype, rec, scipy_ref=None):
+    """The gates of a device build of ``sites``: 2N+1 triangles, structure,
+    local Delaunay on the build's own points, and scipy: in float32 at
+    least SCIPY_AGREE_MIN of the data triangles are scipy's on the exact
+    sites, in float64 every difference from scipy on the build's own
+    points is an exact tie or a cage-excluded hull triangle.
+    ``scipy_ref`` is that scipy triangulation, or None to make it here
+    (then its seconds are recorded).  Fills ``rec``; returns scipy's
+    triangulation of the build's own points in float64, else None."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.utils import integrity
+
+    N = sites.shape[0]
+    pts = build_points(sites, dtype)
+    require(tri.n_tris == 2 * N + 1, f"{tri.n_tris} triangles, not {2 * N + 1}")
+    tv = tri.tri_verts.cpu().numpy()
+    tn = tri.tri_nbrs.cpu().numpy()
+    integrity.check_array_structure(tv, tn)
+    # Local Delaunay on the build's own coordinates, in float64.
+    rec["local_delaunay_violations"] = integrity.local_delaunay_violations(pts, tv, tn)
+    require(rec["local_delaunay_violations"] == 0, f"local Delaunay fails: {rec}")
+
+    data = (tv > 2).all(axis=1)
+    ours = _tri_keys(tv[data] - 3, N)
+    sd = scipy_ref
+    if sd is None:
+        t0 = time.perf_counter()
+        sd = Delaunay(sites if dtype == torch.float32 else pts[3:])
+        rec["scipy_delaunay_s"] = time.perf_counter() - t0
+    if dtype == torch.float32:
+        theirs = _tri_keys(sd.simplices, N)
+        rec["scipy_agree"] = float(np.isin(ours, theirs).mean())
+        require(rec["scipy_agree"] >= SCIPY_AGREE_MIN, f"scipy agreement: {rec}")
+        return None
+    # scipy on the build's own standardized, jittered float64 sites.
+    site_pts = pts[3:]
+    theirs = _tri_keys(sd.simplices, N)
+    only_ours = np.nonzero(data)[0][~np.isin(ours, theirs)]
+    only_theirs = np.nonzero(~np.isin(theirs, ours))[0]
+    # A difference is explained by an exact tie, or, for one of scipy's
+    # hull triangles, by a cage vertex inside its circumcircle.
+    ties = sum(_on_tie(pts, tv, tn, r) for r in only_ours)
+    ties_theirs = [_on_tie(site_pts, sd.simplices, sd.neighbors, r)
+                   for r in only_theirs]
+    caged = sum(
+        not tie and _holds_cage(pts[:3], *site_pts[sd.simplices[r]])
+        for r, tie in zip(only_theirs, ties_theirs)
+    )
+    ties += sum(ties_theirs)
+    rec.update(scipy_data_tris=int(theirs.size),
+               scipy_only_ours=int(only_ours.size),
+               scipy_only_theirs=int(only_theirs.size),
+               scipy_ties=ties, scipy_cage_excluded=caged)
+    require(ties + caged == only_ours.size + only_theirs.size,
+            f"f64 build differs from scipy beyond exact ties: {rec}")
+    return sd
+
+
 def build_at_scale(sites, dtype, device):
     """``triangulate`` of the sites on the card, with its checks.  Returns
     a record of what was measured, and scipy's triangulation of the
     build's own points in float64 (None in float32, where the check uses
     the exact sites)."""
     import torch
-    from scipy.spatial import Delaunay
 
     from gsl_scattered_interpolation_torch.models import device_delaunay as dd
     from gsl_scattered_interpolation_torch.models import host_tree
     from gsl_scattered_interpolation_torch.ops import candmath
-    from gsl_scattered_interpolation_torch.utils import integrity
 
     N = sites.shape[0]
-    pts = build_points(sites, dtype)
-    require_same_points(sites, dtype, pts)
+    require_same_points(sites, dtype, build_points(sites, dtype))
 
     def run(stats=None):
         return dd.triangulate(
@@ -429,67 +571,35 @@ def build_at_scale(sites, dtype, device):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     launches = candmath.edge_candidates_math_cuda.launches
-    # The same build again under the profiler, for the device time by
-    # kernel; its host clock carries the profiler's cost, so build_s is
-    # taken from the run above.
-    busy_ms, rows = profile_build(run)
-    kernel = [v for k, v in rows.items() if candmath.KERNEL in k]
-    require(len(kernel) == 1, f"the profiler saw {len(kernel)} {candmath.KERNEL} rows")
-    kernel_launches, kernel_ms = kernel[0]
-    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:6]
     sub_rounds = stats["insert_sub_rounds"] + stats["cleanup_sub_rounds"]
     rec = {"dtype": str(dtype).split(".")[-1], "n_sites": N,
            "n_tris": tri.n_tris, "build_s": build_s, **stats,
-           "candmath_launches": launches, "candmath_ms_total": kernel_ms,
-           "candmath_share_of_build": kernel_ms / (1e3 * build_s),
-           "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / (1e3 * build_s),
-           "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top}}
-    require(tri.n_tris == 2 * N + 1, f"{tri.n_tris} triangles, not {2 * N + 1}")
+           "candmath_launches": launches}
     require(launches == sub_rounds, f"{launches} launches for {sub_rounds} sub-rounds")
-    require(kernel_launches == launches,
-            f"the profiler saw {kernel_launches} launches, the counter {launches}")
-
-    tv = tri.tri_verts.cpu().numpy()
-    tn = tri.tri_nbrs.cpu().numpy()
-    integrity.check_array_structure(tv, tn)
-    # Local Delaunay on the build's own coordinates, in float64.
-    rec["local_delaunay_violations"] = integrity.local_delaunay_violations(pts, tv, tn)
-    require(rec["local_delaunay_violations"] == 0, f"local Delaunay fails: {rec}")
-
-    data = (tv > 2).all(axis=1)
     if dtype == torch.float32:
-        ours = _tri_keys(tv[data] - 3, N)
-        sd = Delaunay(sites)
-        theirs = _tri_keys(sd.simplices, N)
-        rec["scipy_agree"] = float(np.isin(ours, theirs).mean())
-        require(rec["scipy_agree"] >= SCIPY_AGREE_MIN, f"scipy agreement: {rec}")
-    else:
-        # scipy on the build's own standardized, jittered float64 sites.
-        site_pts = pts[3:]
-        sd = Delaunay(site_pts)
-        ours = _tri_keys(tv[data] - 3, N)
-        theirs = _tri_keys(sd.simplices, N)
-        only_ours = np.nonzero(data)[0][~np.isin(ours, theirs)]
-        only_theirs = np.nonzero(~np.isin(theirs, ours))[0]
-        # A difference is explained by an exact tie, or, for one of scipy's
-        # hull triangles, by a cage vertex inside its circumcircle.
-        ties = sum(_on_tie(pts, tv, tn, r) for r in only_ours)
-        ties_theirs = [_on_tie(site_pts, sd.simplices, sd.neighbors, r)
-                       for r in only_theirs]
-        caged = sum(
-            not tie and _holds_cage(pts[:3], *site_pts[sd.simplices[r]])
-            for r, tie in zip(only_theirs, ties_theirs)
-        )
-        ties += sum(ties_theirs)
-        rec.update(scipy_data_tris=int(theirs.size),
-                   scipy_only_ours=int(only_ours.size),
-                   scipy_only_theirs=int(only_theirs.size),
-                   scipy_ties=ties, scipy_cage_excluded=caged)
-        require(ties + caged == only_ours.size + only_theirs.size,
-                f"f64 build differs from scipy beyond exact ties: {rec}")
+        # The same build again under the profiler, for the device time by
+        # kernel; its host clock carries the profiler's cost, so build_s
+        # is taken from the run above.  (The float64 build is no longer
+        # profiled: the 1M phase needed the time.)
+        t0 = time.perf_counter()
+        busy_ms, rows = profile_build(run)
+        kernel = [v for k, v in rows.items() if candmath.KERNEL in k]
+        require(len(kernel) == 1, f"the profiler saw {len(kernel)} {candmath.KERNEL} rows")
+        kernel_launches, kernel_ms = kernel[0]
+        require(kernel_launches == launches,
+                f"the profiler saw {kernel_launches} launches, the counter {launches}")
+        top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:6]
+        rec.update(candmath_ms_total=kernel_ms,
+                   candmath_share_of_build=kernel_ms / (1e3 * build_s),
+                   device_busy_ms=busy_ms,
+                   device_idle_share=1.0 - busy_ms / (1e3 * build_s),
+                   top_kernels_ms={k[:80]: ms for k, (_, ms) in top},
+                   profiled_build_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sd = check_triangulation(tri, sites, dtype, rec)
+    rec["checks_s"] = time.perf_counter() - t0
     log(f"device build at scale: {json.dumps(rec)}")
-    return rec, (sd if dtype == torch.float64 else None)
+    return rec, sd
 
 
 def sync(device) -> None:
@@ -569,7 +679,8 @@ def main_path(device, n_sites: int, batch: int, n_batches: int, n_check: int,
     return res
 
 
-def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
+def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda",
+                   grid_res: int = 256):
     """The at-scale query path on the card: ``ScatteredInterp`` with
     ``engine="device"`` of ``sites`` (the headline's test function), its
     cell index, and ``n_batches`` eval batches of a million queries, each
@@ -593,7 +704,7 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda"):
     sync(device)
     t0 = time.perf_counter()
     si = ScatteredInterp(sites, values, flags=NOSTANDARDIZE, engine="device",
-                         dtype=dtype, device=device)
+                         dtype=dtype, grid_res=grid_res, device=device)
     sync(device)
     build_s = time.perf_counter() - t0
     T = si.n_simplexes
@@ -689,6 +800,112 @@ def crossover(cases, device="cuda"):
     return out
 
 
+BUILD_COUNTS = ("seeded", "insert_iterations", "split_rounds", "insert_sweep_rounds",
+                "final_sweep_rounds", "flips", "candidate_edges", "cleanup_sub_rounds")
+BUILD_PHASES = ("setup_s", "seed_s", "insert_s", "sweep_s")
+
+
+def build_1m(sites, dtype, n_batches: int, scipy_own, scipy_exact=None,
+             device="cuda"):
+    """bench.py's build at 1M through ``ScatteredInterp(engine="device")``
+    (``at_scale_query`` with grid_res 512, counted from zero), with the
+    build's host seconds by phase and its counts, and the gates of
+    :func:`check_triangulation` (``scipy_own``: scipy's triangulation of
+    the build's own points; ``scipy_exact``: of the exact sites, for the
+    float32 agreement).  The float32 build must have been seeded from
+    Qhull.  (A float64 seed whose walk leaves sites unlocated falls back
+    to the unseeded build, as the JAX package does; the record says which
+    ran.)  Returns the record."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    require_same_points(sites, dtype, build_points(sites, dtype))
+    stats = {}
+    triangulate = dd.triangulate
+    dd.triangulate = functools.partial(triangulate, stats=stats)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rec, si = at_scale_query(sites, dtype, n_batches, scipy_tri=scipy_own,
+                                 device=device, grid_res=GRID_RES_1M)
+    finally:
+        dd.triangulate = triangulate
+    rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    rec.update({k: stats[k] for k in BUILD_PHASES})
+    rec["freeze_s"] = rec["build_s"] - sum(stats[k] for k in BUILD_PHASES)
+    rec.update({k: stats[k] for k in BUILD_COUNTS})
+    f32 = dtype == torch.float32
+    require(stats["seeded"] is True or not f32, f"the 1M build was not seeded: {rec}")
+    sweeps = (stats["insert_sweep_rounds"] + stats["final_sweep_rounds"]
+              + stats["cleanup_sub_rounds"])
+    require(rec["candmath2d_launches"] == sweeps,
+            f"{rec['candmath2d_launches']} candmath2d launches for {sweeps} flip rounds")
+    t0 = time.perf_counter()
+    check_triangulation(si.tri, sites, dtype, rec,
+                        scipy_ref=scipy_exact if f32 else scipy_own)
+    rec["checks_s"] = time.perf_counter() - t0
+    log(f"build at 1M: {json.dumps(rec)}")
+    return rec
+
+
+def phase_1m(device="cuda"):
+    """The build at 1M: scipy's Delaunay of the sites, timed alone; the
+    candidate kernel on the compacted rows; the float32 build without a
+    seed (host seconds) and with one under ``torch.profiler`` (device
+    time), while scipy triangulates the build's own points in two threads
+    beside it (Qhull releases the GIL; nothing timed on the host runs
+    then); then :func:`build_1m` in float32 and float64.  Returns
+    (candidate kernel records, {"f32": record, "f64": record})."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import host_tree
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    sites = np.random.default_rng(SEED_1M).uniform(-0.5, 0.5, size=(N_1M, 2))
+    t0 = time.perf_counter()
+    scipy_exact = Delaunay(sites)
+    scipy_s = time.perf_counter() - t0
+    compact = check_candmath_compact(sites, device)
+
+    def build(**kw):
+        return dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float32,
+                              grid_res=GRID_RES_1M, device=device, **kw)
+
+    unseeded = {}
+    sync(device)
+    t0 = time.perf_counter()
+    build(seed_import="self", stats=unseeded)
+    sync(device)
+    unseeded_s = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        own = {dt: pool.submit(lambda d=dt: Delaunay(build_points(sites, d)[3:]))
+               for dt in (torch.float32, torch.float64)}
+        busy_ms, rows = profile_build(build)
+        scipy_own = {dt: f.result() for dt, f in own.items()}
+    b1m = {"f32": build_1m(sites, torch.float32, N_BATCHES, scipy_own[torch.float32],
+                           scipy_exact, device),
+           "f64": build_1m(sites, torch.float64, 1, scipy_own[torch.float64],
+                           device=device)}
+    kernel = [v for k, v in rows.items() if candmath.KERNEL in k]
+    require(len(kernel) == 1, f"the profiler saw {len(kernel)} {candmath.KERNEL} rows")
+    rec = b1m["f32"]
+    require(kernel[0][0] == rec["candmath2d_launches"],
+            f"the profiler saw {kernel[0][0]} launches, the counter "
+            f"{rec['candmath2d_launches']}")
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+    extra = {"scipy_delaunay_s": scipy_s, "device_busy_ms": busy_ms,
+             "device_idle_share": 1.0 - busy_ms / (1e3 * rec["build_s"]),
+             "candmath_ms_total": kernel[0][1],
+             "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top},
+             "unseeded_triangulate_s": unseeded_s,
+             "unseeded": {k: unseeded[k] for k in (*BUILD_PHASES, *BUILD_COUNTS)}}
+    rec.update(extra)
+    log(f"build at 1M, f32 device time and unseeded build: {json.dumps(extra)}")
+    return compact, b1m
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -709,12 +926,17 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     log(f"phase device: {time.perf_counter() - t0:.2f} s")
 
-    # 2. Build every kernel of the paths from the sources, one after the
-    # other.
-    for name in (locate.KERNEL, candmath.KERNEL):
+    # 2. Build every kernel of the paths from the sources, one nvcc each,
+    # all started together.
+    def timed_build(name):
         t0 = time.perf_counter()
-        out = build.build(name).strip()
-        log(f"nvcc {name}: {time.perf_counter() - t0:.2f} s\n{out}")
+        return build.build(name).strip(), time.perf_counter() - t0
+
+    names = (locate.KERNEL, candmath.KERNEL)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(timed_build, names)))
+    for name, (out, secs) in built.items():
+        log(f"nvcc {name}: {secs:.2f} s\n{out}")
 
     sass = sass_counts(candmath.KERNEL)
     require(set(sass) == {"float", "double"}, f"SASS functions: {sorted(sass)}")
@@ -798,6 +1020,13 @@ def main() -> int:
     cross = crossover(cases)
     log(f"phase crossover: {time.perf_counter() - t0:.2f} s")
 
+    # 8. The build at 1M: the candidate kernel on the compacted rows, then
+    # the facade in float32 and float64, each counted from zero.
+    t0 = time.perf_counter()
+    compact_recs, b1m = phase_1m()
+    log(f"phase build at 1M: {time.perf_counter() - t0:.2f} s")
+
+    TIMES = ("ms", "events_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
@@ -810,7 +1039,9 @@ def main() -> int:
         "launches_by_path": {"host": host["locate2d_launches"],
                              "device": dev["locate2d_launches"],
                              **{f"at_scale_{k}": r["locate2d_launches"]
-                                for k, r in at_scale.items()}},
+                                for k, r in at_scale.items()},
+                             **{f"build_1m_{k}": r["locate2d_launches"]
+                                for k, r in b1m.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
         "ms": loc["ms"],
         "plain_ms": loc["plain_ms"],
@@ -828,19 +1059,25 @@ def main() -> int:
                              "build_200k_f32": b32["candmath_launches"],
                              "build_200k_f64": b64["candmath_launches"],
                              **{f"at_scale_{k}": r["candmath2d_launches"]
-                                for k, r in at_scale.items()}},
+                                for k, r in at_scale.items()},
+                             **{f"build_1m_{k}": r["candmath2d_launches"]
+                                for k, r in b1m.items()}},
         "max_abs_err": max(
-            r["max_abs_err"] for rs in cand_recs.values() for r in rs
+            r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
         "ms": c32["ms"],
+        "events_ms": c32["events_ms"],
         "plain_ms": c32["plain_ms"],
         "bound_ms": c32["bound_ms"],
         "bound_by": c32["bound_by"],
         "library_ms": None,  # no one PyTorch call computes the verdict
         "shape": f"R={c32['rows']} float32",
-        "float64": {k: c64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "float64": {k: c64[k] for k in TIMES},
+        "compact_rows_float32": [{"rows": r["rows"], **{k: r[k] for k in TIMES}}
+                                 for r in compact_recs],
     }]
     log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
+    log(f"1M summary: {json.dumps(b1m)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -52,6 +52,9 @@ from ..utils import errors, machine
 # the H100 crossover against the cell index.
 DENSE_LOCATE_MAX_TRIS = 16384
 PALLAS_LOCATE_MAX_TRIS = 16384
+# from_arrays builds a 2D walk-start grid on the arrays' device from this
+# many build slots on (the JAX package's ``device_freeze_min``).
+DEVICE_FREEZE_MIN = 200_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +213,42 @@ def _bucket_grid(points_std, tri_verts, grid_res: int) -> np.ndarray:
     return g
 
 
+def _grid_device(points_std, tri_verts, grid_res: int):
+    """:func:`_bucket_grid` with tensors on their device, any d.
+
+    Where several centroids fall in one cell, the largest simplex id wins
+    (``scatter_reduce`` "amax", deterministic on every device).  numpy's
+    assignment and XLA's CPU scatter let the last write win, the same id
+    (tests/test_torch_chunked.py holds the grids equal).  The centroid
+    sums its vertices in order, as numpy's mean does.
+    """
+    d = points_std.shape[-1]
+    verts = points_std[tri_verts.long()]  # [T, d+1, d]
+    c = verts[:, 0]
+    for j in range(1, d + 1):
+        c = c + verts[:, j]
+    cells = torch.clamp(
+        ((c / (d + 1) + 0.5) * grid_res).long(), 0, grid_res - 1
+    )
+    flat = cells[:, 0]
+    for j in range(1, d):
+        flat = flat * grid_res + cells[:, j]
+    T = tri_verts.shape[0]
+    g = torch.full((grid_res**d,), -1, dtype=torch.int32, device=c.device)
+    g = g.scatter_reduce(
+        0, flat, torch.arange(T, dtype=torch.int32, device=c.device), "amax"
+    ).reshape((grid_res,) * d)
+    while bool((g < 0).any()):  # one host read per dilation round
+        ng = g
+        for ax in range(d):
+            for shift in (1, -1):
+                cand = torch.roll(g, shift, dims=ax)
+                cand.select(ax, 0 if shift == 1 else grid_res - 1).fill_(-1)
+                ng = torch.where(ng < 0, cand, ng)
+        g = ng
+    return g
+
+
 def _grid_res_3d(n_slots: int, grid_res: int) -> int:
     """Cap the 3D walk-start grid: about one simplex per cell, <= 128^3."""
     auto = int(np.clip(round(n_slots ** (1.0 / 3.0)), 8, 128))
@@ -289,7 +328,9 @@ def from_arrays(
     Compacts to the alive simplexes in slot order and remaps neighbour ids,
     on the arrays' device; computes the affine maps in float64 (``cast``
     rounds them, as after :func:`freeze`).  ``points_raw`` rows 0..d are the
-    cage.  The walk-start grid comes from the host :func:`_bucket_grid`.
+    cage.  The 2D walk-start grid is built on the arrays' device
+    (:func:`_grid_device`) from ``DEVICE_FREEZE_MIN`` slots on, below that
+    by the host :func:`_bucket_grid`; both give the same grid.
     """
     points_raw = np.asarray(points_raw, np.float64)
     shift = np.asarray(shift, np.float64)
@@ -309,7 +350,11 @@ def from_arrays(
     tn = remap[torch.where(tn_keep >= 0, tn_keep, M).long()]
 
     pts_std = scale * (points_raw - shift)
-    if d == 2:
+    if d == 2 and M >= DEVICE_FREEZE_MIN:
+        grid = _grid_device(
+            torch.as_tensor(pts_std, device=tv.device), tv, grid_res
+        )
+    elif d == 2:
         grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)
     elif d == 3:
         grid_res = _grid_res_3d(tv.shape[0], grid_res)

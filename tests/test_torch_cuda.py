@@ -235,3 +235,77 @@ def test_device_index_on_card_equals_cpu(cuda, budget):
     torch.testing.assert_close(got[:, 6], want[:, 6], rtol=0, atol=0)
     ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
     assert int(ulps.max()) <= 1
+
+
+def _std_sites(n, seed, dtype, device):
+    """The build's standardized sites of n uniform sites: (numpy float64,
+    cage tensor on ``device``)."""
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    sites = np.random.default_rng(seed).uniform(-0.5, 0.5, size=(n, 2))
+    *_, cage, std = dd.build_inputs(sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype)
+    return sites, std, cage.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunked_seeded_build_on_card_equals_single_route(cuda, dtype):
+    # 50,000 sites past a lowered chunk threshold: the Qhull seed, the
+    # compacted rounds and the candidate kernel on [R] rows, against the
+    # single-program route on the card.
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    sites = np.random.default_rng(11).uniform(-0.5, 0.5, size=(50_000, 2))
+    kw = dict(flags=host_tree.NOSTANDARDIZE, dtype=dtype, device=cuda)
+    stats = {}
+    before = candmath.edge_candidates_math_cuda.launches
+    tri, sh = dd.triangulate(sites, chunk_threshold=10_000, seed_min=10_000, stats=stats, **kw)
+    launches = candmath.edge_candidates_math_cuda.launches - before
+    ref, sh_ref = dd.triangulate(sites, **kw)
+    assert stats["seeded"] is True and tri.tri_verts.device.type == cuda.type
+    sweeps = stats["insert_sweep_rounds"] + stats["final_sweep_rounds"]
+    assert launches == sweeps + stats["cleanup_sub_rounds"] > 0
+    np.testing.assert_array_equal(sh, sh_ref)
+
+    def tri_set(t):
+        return {tuple(r) for r in np.sort(t.tri_verts.cpu().numpy(), axis=1).tolist()}
+
+    assert tri.n_tris == 100_001 and tri_set(tri) == tri_set(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seed_walk_on_card_locates_every_site(cuda, dtype):
+    # The seed's exact walk on the card leaves no site unlocated (else
+    # _seed_state_2d raises) and puts every site where the CPU walk does.
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    _, std, cage = _std_sites(50_000, 12, dtype, cuda)
+    _, st, dirty = dd._seed_state_2d(std, cage)
+    _, st_cpu, dirty_cpu = dd._seed_state_2d(std, cage.cpu())
+    left = st.site_tri >= 0
+    assert int(left.sum()) == int(st.n_left) > 40_000
+    for f in ("tri_v", "tri_n", "cc", "site_tri"):
+        torch.testing.assert_close(getattr(st, f).cpu(), getattr(st_cpu, f), rtol=0, atol=0)
+    torch.testing.assert_close(dirty.cpu(), dirty_cpu, rtol=0, atol=0)
+
+
+def test_device_grid_starts_reach_every_leaf(cuda, monkeypatch):
+    # from_arrays' device grid on the card: the same grid as the host's,
+    # and a walk from its start triangles reaches every query's leaf.
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+
+    sites = np.random.default_rng(13).uniform(-0.5, 0.5, size=(50_000, 2))
+    monkeypatch.setattr(device_tri, "DEVICE_FREEZE_MIN", 0)
+    tri, _ = dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, grid_res=128, device=cuda)
+    host = device_tri._bucket_grid(
+        tri.points_std.cpu().numpy(), tri.tri_verts.cpu().numpy(), 128
+    )
+    np.testing.assert_array_equal(tri.grid_tri.cpu().numpy(), host)
+    tri32 = tri.cast(torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.rand(200_000, 2, generator=gen, device=cuda) - 0.5
+    leaf, w, ok = device_tri.locate(tri32, q, max_steps=512)
+    assert bool(ok.all())
+    assert bool((w >= -1e-5).all())  # each leaf holds its query within f32 noise
+    dense, _, _ = device_tri.locate_dense(tri32, q)
+    assert (leaf != dense).float().mean() < 1e-3  # ties on shared edges

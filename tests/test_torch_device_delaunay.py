@@ -200,9 +200,12 @@ def test_one_round_from_the_same_state(dt):
     assert bool(any_flip) == bool(jany) is True
 
 
-def test_limits_raise(monkeypatch):
-    monkeypatch.setattr(dd, "CHUNK_THRESHOLD", 20)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        dd.triangulate(_rand(50, 0), device="cpu")
+def test_limits_raise():
+    # Past the chunk threshold the chunked route builds; the vertex-id sums'
+    # float32 limit, 3(n + 3) < 2^24, and d != 2 still raise.
+    tri, _ = dd.triangulate(_rand(50, 0), device="cpu", chunk_threshold=20)
+    assert tri.n_tris == 101
+    with pytest.raises(NotImplementedError, match="inexact in float32"):
+        dd.triangulate(np.zeros((2**24 // 3 - 2, 2)), device="cpu")
     with pytest.raises(NotImplementedError, match="2D"):
         dd.triangulate(np.zeros((5, 3)), device="cpu")

@@ -49,6 +49,11 @@ routes.append(device_tri.interp(sd.tri, sd.response, qt, method="cells", cells=c
 print(sd._cells is not None, cells.complete)
 for v in routes:
     print(*(float(x) for x in v))
+from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+stats = dict()
+tc, _ = dd.triangulate(np.random.default_rng(0).uniform(-0.5, 0.5, (600, 2)), device="cpu",
+                       chunk_threshold=100, seed_min=100, stats=stats)
+print(tc.n_tris, stats["seeded"])
 """
 
 
@@ -96,3 +101,5 @@ def test_slice_runs_with_jax_blocked():
     assert dense[-1] == 0.0 and np.all(np.isfinite(dense))
     for v in others:
         np.testing.assert_allclose(v, dense, rtol=0, atol=1e-9)
+    # The chunked route, seeded from Qhull.
+    assert lines[7].split() == ["1201", "True"]
