@@ -246,6 +246,7 @@ def check_locate(tri, q):
     rec["mismatches"] = int((diff != 0).sum())
     rec["max_abs_err"] = float(diff.max())
     rec["ms"] = time_ms(lambda: locate.locate2d_cuda(qc, g_pack, b_pack), 10)
+    rec["device_ms"] = kernel_ms(lambda: locate.locate2d_cuda(qc, g_pack, b_pack), 10)
     rec["plain_ms"] = time_ms(lambda: locate.locate2d_ref(qc, g_pack, b_pack), 2)
     rec["bound_ms"], rec["bound_by"] = locate_bound_ms(q.shape[0], tri.n_tris)
     return rec
@@ -355,8 +356,8 @@ def candmath_record(args, kargs, timed: bool, **labels):
         def launch():
             return candmath.edge_candidates_math_cuda(*kargs)
 
-        rec["ms"] = kernel_ms(launch)
-        rec["events_ms"] = time_ms(launch, 20)
+        rec["ms"] = time_ms(launch, 20)
+        rec["device_ms"] = kernel_ms(launch)
         rec["plain_ms"] = time_ms(lambda: candmath.edge_candidates_math_ref(*args), 3)
         rec["bound_ms"], rec["bound_by"] = candmath_bound_ms(
             R, args[0].dtype == torch.float64
@@ -423,7 +424,9 @@ def _device_us(evt) -> float:
 
 def profile_build(fn):
     """Device time of ``fn()`` by kernel name, from ``torch.profiler``:
-    (busy ms, {name: (launches, ms)})."""
+    (busy ms, wall ms, {name: (launches, ms)}).  Busy and wall time are of
+    the same run, so their ratio is its device idle share; the wall time
+    carries the profiler's own cost on the host."""
     import torch
 
     # Device activity only: recording every host op would slow the
@@ -431,14 +434,16 @@ def profile_build(fn):
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = {
         e.key: (e.count, _device_us(e) / 1e3)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
     }
-    return sum(ms for _, ms in rows.values()), rows
+    return sum(ms for _, ms in rows.values()), wall_ms, rows
 
 
 def _tri_keys(tri, n):
@@ -578,11 +583,11 @@ def build_at_scale(sites, dtype, device):
     require(launches == sub_rounds, f"{launches} launches for {sub_rounds} sub-rounds")
     if dtype == torch.float32:
         # The same build again under the profiler, for the device time by
-        # kernel; its host clock carries the profiler's cost, so build_s
-        # is taken from the run above.  (The float64 build is no longer
-        # profiled: the 1M phase needed the time.)
-        t0 = time.perf_counter()
-        busy_ms, rows = profile_build(run)
+        # kernel and the idle share of that run; its host clock carries
+        # the profiler's cost, so build_s is taken from the run above.
+        # (The float64 build is not profiled: the 1M phase needed the
+        # time.)
+        busy_ms, wall_ms, rows = profile_build(run)
         kernel = [v for k, v in rows.items() if candmath.KERNEL in k]
         require(len(kernel) == 1, f"the profiler saw {len(kernel)} {candmath.KERNEL} rows")
         kernel_launches, kernel_ms = kernel[0]
@@ -590,11 +595,11 @@ def build_at_scale(sites, dtype, device):
                 f"the profiler saw {kernel_launches} launches, the counter {launches}")
         top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:6]
         rec.update(candmath_ms_total=kernel_ms,
-                   candmath_share_of_build=kernel_ms / (1e3 * build_s),
+                   candmath_share_of_build=kernel_ms / wall_ms,
                    device_busy_ms=busy_ms,
-                   device_idle_share=1.0 - busy_ms / (1e3 * build_s),
+                   device_idle_share=1.0 - busy_ms / wall_ms,
                    top_kernels_ms={k[:80]: ms for k, (_, ms) in top},
-                   profiled_build_s=time.perf_counter() - t0)
+                   profiled_build_s=wall_ms / 1e3)
     t0 = time.perf_counter()
     sd = check_triangulation(tri, sites, dtype, rec)
     rec["checks_s"] = time.perf_counter() - t0
@@ -851,11 +856,12 @@ def build_1m(sites, dtype, n_batches: int, scipy_own, scipy_exact=None,
 def phase_1m(device="cuda"):
     """The build at 1M: scipy's Delaunay of the sites, timed alone; the
     candidate kernel on the compacted rows; the float32 build without a
-    seed (host seconds) and with one under ``torch.profiler`` (device
-    time), while scipy triangulates the build's own points in two threads
-    beside it (Qhull releases the GIL; nothing timed on the host runs
-    then); then :func:`build_1m` in float32 and float64.  Returns
-    (candidate kernel records, {"f32": record, "f64": record})."""
+    seed (host seconds); scipy's triangulations of the build's own points
+    in float32 and float64, in two threads with nothing else running; the
+    seeded float32 build alone under ``torch.profiler`` (device time and
+    the idle share of that run); then :func:`build_1m` in float32 and
+    float64.  Returns (candidate kernel records, {"f32": record, "f64":
+    record})."""
     import torch
     from scipy.spatial import Delaunay
 
@@ -882,8 +888,10 @@ def phase_1m(device="cuda"):
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         own = {dt: pool.submit(lambda d=dt: Delaunay(build_points(sites, d)[3:]))
                for dt in (torch.float32, torch.float64)}
-        busy_ms, rows = profile_build(build)
         scipy_own = {dt: f.result() for dt, f in own.items()}
+    profiled = {}
+    busy_ms, wall_ms, rows = profile_build(lambda: build(stats=profiled))
+    require(profiled["seeded"] is True, "the profiled 1M build was not seeded")
     b1m = {"f32": build_1m(sites, torch.float32, N_BATCHES, scipy_own[torch.float32],
                            scipy_exact, device),
            "f64": build_1m(sites, torch.float64, 1, scipy_own[torch.float64],
@@ -896,7 +904,8 @@ def phase_1m(device="cuda"):
             f"{rec['candmath2d_launches']}")
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
     extra = {"scipy_delaunay_s": scipy_s, "device_busy_ms": busy_ms,
-             "device_idle_share": 1.0 - busy_ms / (1e3 * rec["build_s"]),
+             "profiled_triangulate_s": wall_ms / 1e3,
+             "device_idle_share": 1.0 - busy_ms / wall_ms,
              "candmath_ms_total": kernel[0][1],
              "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top},
              "unseeded_triangulate_s": unseeded_s,
@@ -1026,7 +1035,7 @@ def main() -> int:
     compact_recs, b1m = phase_1m()
     log(f"phase build at 1M: {time.perf_counter() - t0:.2f} s")
 
-    TIMES = ("ms", "events_ms", "plain_ms", "bound_ms", "bound_by")
+    TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
@@ -1044,6 +1053,7 @@ def main() -> int:
                                 for k, r in b1m.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
         "ms": loc["ms"],
+        "device_ms": loc["device_ms"],
         "plain_ms": loc["plain_ms"],
         "bound_ms": loc["bound_ms"],
         "bound_by": loc["bound_by"],
@@ -1066,7 +1076,7 @@ def main() -> int:
             r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
         "ms": c32["ms"],
-        "events_ms": c32["events_ms"],
+        "device_ms": c32["device_ms"],
         "plain_ms": c32["plain_ms"],
         "bound_ms": c32["bound_ms"],
         "bound_by": c32["bound_by"],

@@ -818,44 +818,23 @@ def _seed_state_2d(sites_std, cage_std, seed_frac: int = SEED_FRAC):
     return pts, st, dirty
 
 
-def _relocate_dense(pts, site_tri, affected, decide):
-    """``decide`` on every site, kept where ``affected``."""
-    N = site_tri.shape[0]
-    t_of = torch.where(affected, site_tri, 0)
-    new_t = decide(t_of, pts[3 : 3 + N])
-    return torch.where(affected, new_t, site_tri)
-
-
-def _relocate_compact(pts, site_tri, affected, decide, cnt: int, chunk: int):
-    """``decide`` on the ``cnt`` affected sites only, ``chunk`` at a time."""
-    ids = _compact_rows(affected, cnt)
-    for s in range(0, cnt, chunk):
-        sb = ids[s : s + chunk]
-        new_t = decide(site_tri[sb], pts[sb + 3])
-        site_tri = site_tri.index_put((sb.long(),), new_t)
-    return site_tri
-
-
 def _relocate_sites_chunked(pts, site_tri, affected, decide, r_site: int):
     """Re-locate the affected sites: ``decide(t_of [B], q [B, 2]) -> [B]``
     maps a site's stale triangle to its new one.
 
-    ``decide`` is per site, so every route gives the same ``site_tri``; the
-    route only prices the work.  The JAX package picks by a ``lax.cond`` on
-    the affected count; here one host read of the count picks: with
-    ``3 * r_site >= 2N``, all N sites densely when more than
-    ``max(1024, N // 4)`` are affected, else the affected ones compacted;
-    past that N, the compacted ones ``r_site`` at a time.
+    One host read of the affected count; then ``decide`` runs on the
+    affected sites only, compacted, ``r_site`` at a time.  ``decide`` is per
+    site, so this gives the ``site_tri`` of each of the JAX package's
+    routes (its ``lax.cond`` between all N sites and the compacted ones,
+    and its chunk loop).
     """
-    N = site_tri.shape[0]
     cnt = int(torch.sum(affected))
-    if cnt == 0:
-        return site_tri
-    if 3 * r_site >= 2 * N:
-        if cnt > max(1024, N // 4):
-            return _relocate_dense(pts, site_tri, affected, decide)
-        return _relocate_compact(pts, site_tri, affected, decide, cnt, cnt)
-    return _relocate_compact(pts, site_tri, affected, decide, cnt, r_site)
+    ids = _compact_rows(affected, cnt)
+    for s in range(0, cnt, r_site):
+        sb = ids[s : s + r_site]
+        new_t = decide(site_tri[sb], pts[sb + 3])
+        site_tri = site_tri.index_put((sb.long(),), new_t)
+    return site_tri
 
 
 def _assign_split_child_rec(rec_f, t_of, q):

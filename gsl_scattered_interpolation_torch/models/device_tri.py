@@ -52,9 +52,6 @@ from ..utils import errors, machine
 # the H100 crossover against the cell index.
 DENSE_LOCATE_MAX_TRIS = 16384
 PALLAS_LOCATE_MAX_TRIS = 16384
-# from_arrays builds a 2D walk-start grid on the arrays' device from this
-# many build slots on (the JAX package's ``device_freeze_min``).
-DEVICE_FREEZE_MIN = 200_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,8 +326,7 @@ def from_arrays(
     on the arrays' device; computes the affine maps in float64 (``cast``
     rounds them, as after :func:`freeze`).  ``points_raw`` rows 0..d are the
     cage.  The 2D walk-start grid is built on the arrays' device
-    (:func:`_grid_device`) from ``DEVICE_FREEZE_MIN`` slots on, below that
-    by the host :func:`_bucket_grid`; both give the same grid.
+    (:func:`_grid_device`, the same grid as the host :func:`_bucket_grid`).
     """
     points_raw = np.asarray(points_raw, np.float64)
     shift = np.asarray(shift, np.float64)
@@ -350,12 +346,10 @@ def from_arrays(
     tn = remap[torch.where(tn_keep >= 0, tn_keep, M).long()]
 
     pts_std = scale * (points_raw - shift)
-    if d == 2 and M >= DEVICE_FREEZE_MIN:
+    if d == 2:
         grid = _grid_device(
             torch.as_tensor(pts_std, device=tv.device), tv, grid_res
         )
-    elif d == 2:
-        grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)
     elif d == 3:
         grid_res = _grid_res_3d(tv.shape[0], grid_res)
         grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)

@@ -245,8 +245,9 @@ def _jax_relocate(r_site):
     return jax.jit(run)
 
 
-# JAX's compact branch (500 affected <= max(1024, N // 4)), its dense
-# branch (4,000 affected), and its chunk loop (3 * r_site < 2N).
+# Each of JAX's branches against the port's one compacted route: JAX's
+# compact branch (500 affected <= max(1024, N // 4)), its dense branch
+# (4,000 affected), and its chunk loop (3 * r_site < 2N).
 RELOCATES = [(500, 1 << 21), (4000, 1 << 21), (4000, 1000)]
 
 
@@ -265,11 +266,10 @@ def test_relocate_routes_equal_jax(cnt, r_site):
     def decide(t, q):
         return dd._assign_flip_side_rec(tfrec, t, q)
 
+    # The port's one route, in JAX's r_site chunks and in chunks of 333.
     routes = {
-        "chosen": dd._relocate_sites_chunked(tpts, tsite, taff, decide, r_site),
-        "dense": dd._relocate_dense(tpts, tsite, taff, decide),
-        "compact": dd._relocate_compact(tpts, tsite, taff, decide, cnt, cnt),
-        "chunked": dd._relocate_compact(tpts, tsite, taff, decide, cnt, 333),
+        "r_site": dd._relocate_sites_chunked(tpts, tsite, taff, decide, r_site),
+        "chunks_of_333": dd._relocate_sites_chunked(tpts, tsite, taff, decide, 333),
     }
     for name, got in routes.items():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
@@ -389,7 +389,7 @@ def test_seed_walk_failure_builds_without_seed(monkeypatch, caplog):
 # ---------------------------------------------------------------------------
 
 
-def test_device_grid_equals_jax_and_host(jax_builds, monkeypatch):
+def test_device_grid_equals_jax_and_host(jax_builds):
     jtri, _ = jax_builds("seeded_3000")
     tri, _ = _port_build("seeded_3000")
     pts = tri.points_std
@@ -402,11 +402,10 @@ def test_device_grid_equals_jax_and_host(jax_builds, monkeypatch):
         np.testing.assert_array_equal(got.numpy(), want)
         host = device_tri._bucket_grid(pts.numpy(), tri.tri_verts.numpy(), res)
         np.testing.assert_array_equal(device_tri._grid_device(pts, tri.tri_verts, res).numpy(), host)
-    # from_arrays switches to the device grid at DEVICE_FREEZE_MIN slots.
-    monkeypatch.setattr(device_tri, "DEVICE_FREEZE_MIN", 100)
-    again, _ = _port_build("seeded_3000")
-    np.testing.assert_array_equal(again.grid_tri.numpy(), tri.grid_tri.numpy())
-    np.testing.assert_array_equal(again.tri_verts.numpy(), tri.tri_verts.numpy())
+    # from_arrays builds its 2D grid with _grid_device at every size: the
+    # build's grid is the host grid of its own rows.
+    host = device_tri._bucket_grid(pts.numpy(), tri.tri_verts.numpy(), tri.grid_res)
+    np.testing.assert_array_equal(tri.grid_tri.numpy(), host)
 
 
 def test_slice_past_threshold_matches_jax(jax_builds, monkeypatch):

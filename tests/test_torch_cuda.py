@@ -289,13 +289,12 @@ def test_seed_walk_on_card_locates_every_site(cuda, dtype):
     torch.testing.assert_close(dirty.cpu(), dirty_cpu, rtol=0, atol=0)
 
 
-def test_device_grid_starts_reach_every_leaf(cuda, monkeypatch):
+def test_device_grid_starts_reach_every_leaf(cuda):
     # from_arrays' device grid on the card: the same grid as the host's,
     # and a walk from its start triangles reaches every query's leaf.
     from gsl_scattered_interpolation_torch.models import device_delaunay as dd
 
     sites = np.random.default_rng(13).uniform(-0.5, 0.5, size=(50_000, 2))
-    monkeypatch.setattr(device_tri, "DEVICE_FREEZE_MIN", 0)
     tri, _ = dd.triangulate(sites, flags=host_tree.NOSTANDARDIZE, grid_res=128, device=cuda)
     host = device_tri._bucket_grid(
         tri.points_std.cpu().numpy(), tri.tri_verts.cpu().numpy(), 128
