@@ -27,8 +27,12 @@ plain version on the chunked route's compacted rows, then
 ``ScatteredInterp(engine="device")`` of 1,000,000 sites in float32, seeded
 from Qhull, counted from zero, checked as the 200k build is, with 10
 batches of a million queries through its cell index against the locate
-kernel and scipy, and the same in float64 with one batch.  Everything is
-timed.
+kernel and scipy, and the same in float64 with one batch.  Last, the 3D
+phase at bench.py's sizes, each path counted from zero (neither kernel is
+on it): ``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
+(and a salted rebuild) and float64, held against scipy; the 3D cell index
+under 10 batches of 2,000,000 queries, against the walk and scipy; and
+100,000 sites, with a profiled build.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -64,6 +68,15 @@ N_SCALE_SMALL = 20_000     # T = 40,001
 N_1M = 1_000_000           # bench.py's build: default_rng(7), grid_res 512
 SEED_1M = 7
 GRID_RES_1M = 512
+# The 3D phase, at bench.py's sizes (bench_cavity3d): cavity3d_10k,
+# queries_3d and cavity3d_100k.
+N_3D = 10_000
+SEED_3D = 13
+N_3D_CHECK = 20_000        # queries held against scipy
+Q3D_BATCH = 2_000_000
+Q3D_SEED = 14
+N_3D_LARGE = 100_000
+SEED_3D_LARGE = 17
 # H100 SXM data sheet: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
 # the tensor cores count an FMA as two operations, so one non-FMA
 # instruction per lane and clock is 33.5e12 (float32) and 17e12 (float64)
@@ -414,19 +427,20 @@ def check_candmath_compact(sites, device="cuda"):
     return recs
 
 
-def _device_us(evt) -> float:
-    """Self device time of a profiler average, in microseconds."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+# The device activities of a torch.profiler trace, by their "cat".
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def profile_build(fn):
     """Device time of ``fn()`` by kernel name, from ``torch.profiler``:
     (busy ms, wall ms, {name: (launches, ms)}).  Busy and wall time are of
     the same run, so their ratio is its device idle share; the wall time
-    carries the profiler's own cost on the host."""
+    carries the profiler's own cost on the host.  The device activities
+    are read from the exported trace: ``key_averages`` took 70 s over the
+    435,000 launches of a 100,000-site 3D build."""
+    import os
+    import tempfile
+
     import torch
 
     # Device activity only: recording every host op would slow the
@@ -438,11 +452,18 @@ def profile_build(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = {
-        e.key: (e.count, _device_us(e) / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
-    }
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS:
+            n, ms = rows.get(e["name"], (0, 0.0))
+            rows[e["name"]] = (n + 1, ms + float(e["dur"]) / 1e3)
+    log(f"profiler trace: {len(events)} events read in {time.perf_counter() - t0:.2f} s")
     return sum(ms for _, ms in rows.values()), wall_ms, rows
 
 
@@ -915,6 +936,233 @@ def phase_1m(device="cuda"):
     return compact, b1m
 
 
+def values_3d(sites):
+    """bench.py's 3D test function at ``sites``."""
+    return np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1]) + sites[:, 2]
+
+
+def cavity_facade(sites, dtype, device, salt: float = 0.0):
+    """``ScatteredInterp(engine="cavity")`` of ``sites + salt`` with
+    bench.py's 3D values, both kernel counters set to 0 just before.
+    Returns (facade, record of the build's seconds, stats and launches)."""
+    import torch
+
+    from gsl_scattered_interpolation_torch import ScatteredInterp
+    from gsl_scattered_interpolation_torch.models import device_cavity as dc
+    from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
+
+    stats = {}
+    triangulate = dc.triangulate
+    dc.triangulate = functools.partial(triangulate, stats=stats)
+    locate.locate2d_cuda.launches = 0
+    candmath.edge_candidates_math_cuda.launches = 0
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        si = ScatteredInterp(sites + salt, values_3d(sites), flags=NOSTANDARDIZE,
+                             engine="cavity", dtype=dtype, device=device)
+        sync(device)
+        build_s = time.perf_counter() - t0
+    finally:
+        dc.triangulate = triangulate
+    w = stats["winners"]
+    rec = {"dtype": str(dtype).split(".")[-1], "n_sites": sites.shape[0],
+           "n_tets": si.n_simplexes, "build_s": build_s,
+           **{k: stats[k] for k in ("setup_s", "seed_s", "rounds_s", "freeze_s",
+                                    "seeded", "seed_sites", "seed_left_out", "rounds",
+                                    "escalations",
+                                    "cavity_cap")},
+           "winners_min_mean_max": [min(w, default=0), sum(w) / max(len(w), 1),
+                                    max(w, default=0)],
+           "winners_per_round": w,
+           "locate2d_launches": locate.locate2d_cuda.launches,
+           "candmath2d_launches": candmath.edge_candidates_math_cuda.launches}
+    require(si.engine == "cavity" and si.tri.dim == 3, "not a 3D cavity build")
+    require(sum(w) == sites.shape[0] - stats["seed_sites"], f"winners: {rec}")
+    return si, rec
+
+
+def check_3d(si, scipy_tri, values, q, limit, rec, prefix=""):
+    """The 3D gates: neighbour structure of the tetrahedra, every query
+    located, and ``si.eval(q)`` within ``limit`` of scipy's linear
+    interpolant on ``scipy_tri`` (the build's own points).  Fills ``rec``
+    with the error's p999 and max."""
+    import torch
+    from scipy.interpolate import LinearNDInterpolator
+
+    from gsl_scattered_interpolation_torch.utils import integrity
+
+    integrity.check_array_structure(si.tri.tri_verts.cpu().numpy(),
+                                    si.tri.tri_nbrs.cpu().numpy())
+    qt = si._queries(q)
+    out = si.eval(qt)
+    _, _, ok = si._locate(qt)
+    require(out.shape == (q.shape[0],) and bool(torch.isfinite(out).all()),
+            f"eval gave {tuple(out.shape)} or non-finite values")
+    ref = LinearNDInterpolator(scipy_tri, values)(q)
+    inside = np.isfinite(ref)
+    err = np.abs(out.double().cpu().numpy()[inside] - ref[inside])
+    rec.update({f"{prefix}located": bool(ok.all()),
+                f"{prefix}in_scipy_hull": float(inside.mean()),
+                f"{prefix}eval_vs_scipy_p999": float(np.quantile(err, 0.999)),
+                f"{prefix}eval_vs_scipy_max": float(err.max())})
+    require(rec[f"{prefix}located"], f"a query was not located: {rec}")
+    require(inside.mean() > 0.99, f"{inside.mean()} of the queries in scipy's hull")
+    require(err.max() < limit, f"eval vs scipy: {rec}")
+
+
+def own_points_3d(sites, dtype):
+    """The coordinates a cavity build of ``sites`` triangulates (flags
+    NOSTANDARDIZE): rounded to float32 (no jitter), or the float64 sites
+    (a jitter of 2^16 ulps, far below the tolerance)."""
+    import torch
+
+    if dtype == torch.float32:
+        return sites.astype(np.float32).astype(np.float64)
+    return sites
+
+
+def queries_3d(si, sites, device="cuda"):
+    """bench.py's queries_3d over the float32 10k build: its 3D cell index
+    built on the card (timed, with its layout and dropped share), then 10
+    batches of Q3D_BATCH queries through ``eval``, counted from zero.
+    Gated against the walk on the first batch (leaves and values) and
+    against scipy on N_3D_CHECK of its queries.  Returns the record."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
+
+    locate.locate2d_cuda.launches = 0
+    candmath.edge_candidates_math_cuda.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    cells = device_tri.build_cell_index(si.tri)
+    sync(device)
+    index_s = time.perf_counter() - t0
+    si._cells = cells
+    gen = torch.Generator(device=device).manual_seed(Q3D_SEED)
+    Q = torch.rand(N_BATCHES, Q3D_BATCH, 3, generator=gen, device=device) * 0.9 - 0.45
+    walked = []
+    sync(device)
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(N_BATCHES):
+        before = device_tri.locate.queries
+        outs.append(si.eval(Q[i]))
+        walked.append(device_tri.locate.queries - before)
+    sync(device)
+    eval_s = time.perf_counter() - t0
+    rec = {"n_tets": si.n_simplexes, "index_s": index_s,
+           "index_method": device_tri.auto_index_method(device, si.n_simplexes, 3),
+           "G": cells.res, "K": cells.k,
+           "layout": "packed" if cells.rows is None else "two-stage",
+           "table_MB": cells.table.numel() * 4 / 1e6, "complete": cells.complete,
+           "n_bad": cells.n_bad, "n_pairs": cells.n_pairs,
+           "dropped_share": cells.n_bad / max(cells.n_pairs, 1),
+           "overflow_cells": int(cells.overflow.sum()),
+           "eval_s": eval_s, "queries_per_s": Q3D_BATCH * N_BATCHES / eval_s,
+           "walked_per_batch": walked,
+           "locate2d_launches": locate.locate2d_cuda.launches,
+           "candmath2d_launches": candmath.edge_candidates_math_cuda.launches}
+    q0 = Q[0]
+    leaf, w, ok = device_tri.locate_cells(si.tri, cells, q0)
+    wleaf, ww, wok = device_tri.locate(si.tri, q0)
+    walk = device_tri.interp(si.tri, si.response, q0, method="walk")
+    rec["leaf_mismatch_vs_walk"] = float((leaf != wleaf).float().mean())
+    rec["eval_vs_walk_max"] = float((outs[0] - walk).abs().max())
+    require(rec["leaf_mismatch_vs_walk"] < LEAF_MISMATCH_MAX, f"leaves vs walk: {rec}")
+    require(rec["eval_vs_walk_max"] < EVAL_VS_DENSE_MAX, f"values vs walk: {rec}")
+    q = Q[0, :N_3D_CHECK].double().cpu().numpy()
+    check_3d(si, Delaunay(own_points_3d(sites, torch.float32)), values_3d(sites), q,
+             EVAL_VS_SCIPY_MAX, rec)
+    log(f"queries_3d: {json.dumps(rec)}")
+    return rec
+
+
+def phase_3d(device="cuda"):
+    """The 3D phase, at bench.py's sizes.  cavity3d_10k: the float32 facade
+    of 10,000 sites (first build, then one rebuild of salted sites), its
+    gates against scipy and scipy's Delaunay seconds; the same in float64
+    within 1e-9.  queries_3d over the float32 build (:func:`queries_3d`).
+    cavity3d_100k: the float32 facade of 100,000 sites (build seconds by
+    phase, peak memory, gates), scipy's seconds and the device idle share
+    of a profiled build.  Returns {name: record}."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_cavity as dc
+    from gsl_scattered_interpolation_torch.models import host_tree
+
+    out = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"phase 3D, {label}: {now - t_lap[0]:.2f} s")
+        t_lap[0] = now
+
+    rng = np.random.default_rng(SEED_3D)
+    sites = rng.uniform(-0.5, 0.5, size=(N_3D, 3))
+    q = rng.uniform(-0.45, 0.45, size=(N_3D_CHECK, 3))
+    t0 = time.perf_counter()
+    Delaunay(sites)
+    scipy_s = time.perf_counter() - t0
+    si, rec = cavity_facade(sites, torch.float32, device)
+    _, again = cavity_facade(sites, torch.float32, device, salt=1e-7)
+    rec.update(scipy_delaunay_s=scipy_s, rebuild_salted_s=again["build_s"],
+               rebuild_rounds=again["rounds"])
+    own = Delaunay(own_points_3d(sites, torch.float32))
+    theirs = {tuple(r) for r in np.sort(own.simplices, 1).tolist()}
+    tv = si.tri.tri_verts.cpu().numpy()
+    data = np.sort(tv[(tv > 3).all(1)] - 4, 1)  # user ids: key=None
+    rec["scipy_agree"] = float(np.mean([tuple(r) in theirs for r in data.tolist()]))
+    check_3d(si, own, values_3d(sites), q, EVAL_VS_SCIPY_MAX, rec)
+    out["cavity3d_10k"] = rec
+    log(f"cavity3d_10k f32: {json.dumps(rec)}")
+    lap("10k float32")
+    si64, rec64 = cavity_facade(sites, torch.float64, device)
+    check_3d(si64, Delaunay(sites), values_3d(sites), q, EVAL_VS_SCIPY_F64_MAX, rec64)
+    out["cavity3d_10k_f64"] = rec64
+    log(f"cavity3d_10k f64: {json.dumps(rec64)}")
+    del si64
+    lap("10k float64")
+    out["queries_3d"] = queries_3d(si, sites, device)
+    del si
+    lap("queries_3d")
+
+    rng = np.random.default_rng(SEED_3D_LARGE)
+    big = rng.uniform(-0.5, 0.5, size=(N_3D_LARGE, 3))
+    q = rng.uniform(-0.45, 0.45, size=(N_3D_CHECK, 3))
+    t0 = time.perf_counter()
+    Delaunay(big)
+    scipy_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    si, rec = cavity_facade(big, torch.float32, device)
+    check_3d(si, Delaunay(own_points_3d(big, torch.float32)), values_3d(big), q,
+             EVAL_VS_SCIPY_MAX, rec)
+    rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["index"] = {"G": si._cells.res, "K": si._cells.k, "complete": si._cells.complete,
+                    "layout": "packed" if si._cells.rows is None else "two-stage",
+                    "dropped_share": si._cells.n_bad / max(si._cells.n_pairs, 1)}
+    del si
+    lap("100k build and gates")
+    busy_ms, wall_ms, rows = profile_build(lambda: dc.triangulate(
+        big, flags=host_tree.NOSTANDARDIZE, dtype=torch.float32, device=device))
+    lap("100k profiled build")
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+    rec.update(scipy_delaunay_s=scipy_s, device_busy_ms=busy_ms,
+               profiled_triangulate_s=wall_ms / 1e3,
+               device_idle_share=1.0 - busy_ms / wall_ms,
+               device_launches=sum(n for n, _ in rows.values()),
+               top_kernels_ms={k[:80]: ms for k, (_, ms) in top})
+    out["cavity3d_100k"] = rec
+    log(f"cavity3d_100k: {json.dumps(rec)}")
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1035,6 +1283,13 @@ def main() -> int:
     compact_recs, b1m = phase_1m()
     log(f"phase build at 1M: {time.perf_counter() - t0:.2f} s")
 
+    # 9. The 3D phase: the cavity builds at 10k and 100k and the 3D cell
+    # index at 2M queries per batch, each path counted from zero (neither
+    # kernel is on it).
+    t0 = time.perf_counter()
+    p3d = phase_3d()
+    log(f"phase 3D: {time.perf_counter() - t0:.2f} s")
+
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
@@ -1050,7 +1305,8 @@ def main() -> int:
                              **{f"at_scale_{k}": r["locate2d_launches"]
                                 for k, r in at_scale.items()},
                              **{f"build_1m_{k}": r["locate2d_launches"]
-                                for k, r in b1m.items()}},
+                                for k, r in b1m.items()},
+                             **{k: r["locate2d_launches"] for k, r in p3d.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
         "ms": loc["ms"],
         "device_ms": loc["device_ms"],
@@ -1071,7 +1327,8 @@ def main() -> int:
                              **{f"at_scale_{k}": r["candmath2d_launches"]
                                 for k, r in at_scale.items()},
                              **{f"build_1m_{k}": r["candmath2d_launches"]
-                                for k, r in b1m.items()}},
+                                for k, r in b1m.items()},
+                             **{k: r["candmath2d_launches"] for k, r in p3d.items()}},
         "max_abs_err": max(
             r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
@@ -1088,6 +1345,7 @@ def main() -> int:
     }]
     log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
     log(f"1M summary: {json.dumps(b1m)}")
+    log(f"3D summary: {json.dumps(p3d)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 :func:`from_jax_arrays` takes the fields of a JAX ``DeviceTriangulation``
 as numpy arrays (``np.asarray`` of each) and the response vector;
 :func:`from_jax_build_state` the fields of a JAX device-build
-``BuildState``.  The port and the JAX package can then run on identical
+``BuildState``, and :func:`from_jax_cavity_state` those of a JAX cavity
+``CavityState``.  The port and the JAX package can then run on identical
 state.
 """
 
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device_cavity import CavityState
 from .device_delaunay import BuildState
 from .device_tri import DeviceTriangulation
 
@@ -58,6 +60,29 @@ def from_jax_build_state(fields: dict, device="cuda") -> BuildState:
         tri_v=rows("tri_v", -1),
         tri_n=rows("tri_n", -1),
         cc=rows("cc", 0),
+        n_tris=scalar("n_tris"),
+        site_tri=torch.tensor(np.asarray(fields["site_tri"]), device=device),
+        n_left=scalar("n_left"),
+    )
+
+
+def from_jax_cavity_state(fields: dict, device="cuda") -> CavityState:
+    """The port's CavityState on ``device`` from a JAX ``CavityState``.
+
+    ``fields`` maps each field name to a numpy array.  tri_v and tri_n get
+    the spare trash row M after their M rows (-1 ids).
+    """
+
+    def rows(name):
+        a = torch.tensor(np.asarray(fields[name]), device=device)
+        return torch.cat([a, torch.full_like(a[:1], -1)])
+
+    def scalar(name):
+        return torch.tensor(int(fields[name]), dtype=torch.int32, device=device)
+
+    return CavityState(
+        tri_v=rows("tri_v"),
+        tri_n=rows("tri_n"),
         n_tris=scalar("n_tris"),
         site_tri=torch.tensor(np.asarray(fields["site_tri"]), device=device),
         n_left=scalar("n_left"),

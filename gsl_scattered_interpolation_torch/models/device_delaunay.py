@@ -1200,18 +1200,18 @@ def build_2d_chunked(
 
 
 def build_inputs(sites_raw, lo=None, hi=None, flags: int = 0, key=None,
-                 dtype=torch.float64):
+                 dtype=torch.float64, jitter_ulps: float = 8.0):
     """What the build starts from, all on the host: ``(shift, scale,
     shuffle, cage_raw, cage_std, sites_std)``.
 
-    ``cage_raw`` [3, 2] is in ``dtype``'s numpy type, ``cage_std`` a
-    ``dtype`` tensor, ``sites_std`` [n, 2] float64 numpy: the sites
-    shuffled, standardized and jittered by 8 ulps of ``dtype`` drawn from
-    ``np.random.default_rng(12345)``.  The jitter is a deterministic
-    symbolic perturbation for the build's predicates: exactly degenerate
-    input (collinear runs, cocircular lattices) breaks the parallel flip
-    schedule's tie handling.  It is kept small, since it displaces the
-    triangulation from the exact points.
+    ``cage_raw`` [d+1, d] is in ``dtype``'s numpy type, ``cage_std`` a
+    ``dtype`` tensor, ``sites_std`` [n, d] float64 numpy: the sites
+    shuffled, standardized and jittered by ``jitter_ulps`` ulps of
+    ``dtype`` drawn from ``np.random.default_rng(12345)``.  The jitter is a
+    deterministic symbolic perturbation for the build's predicates: exactly
+    degenerate input (collinear runs, cocircular lattices) breaks the
+    parallel flip schedule's tie handling.  It is kept small, since it
+    displaces the triangulation from the exact points.
     """
     sites_raw = np.asarray(sites_raw, np.float64)
     n, d = sites_raw.shape
@@ -1233,7 +1233,7 @@ def build_inputs(sites_raw, lo=None, hi=None, flags: int = 0, key=None,
     sites_std = sites_raw[shuffle]
     sites_std -= shift
     sites_std *= scale
-    jit_mag = 8.0 * machine.eps(dtype)
+    jit_mag = jitter_ulps * machine.eps(dtype)
     sites_std += jit_mag * np.random.default_rng(12345).uniform(-1, 1, (n, d))
     return shift, scale, shuffle, cage_raw, cage_std, sites_std
 

@@ -325,7 +325,7 @@ def from_arrays(
     Compacts to the alive simplexes in slot order and remaps neighbour ids,
     on the arrays' device; computes the affine maps in float64 (``cast``
     rounds them, as after :func:`freeze`).  ``points_raw`` rows 0..d are the
-    cage.  The 2D walk-start grid is built on the arrays' device
+    cage.  The 2D and 3D walk-start grids are built on the arrays' device
     (:func:`_grid_device`, the same grid as the host :func:`_bucket_grid`).
     """
     points_raw = np.asarray(points_raw, np.float64)
@@ -346,13 +346,12 @@ def from_arrays(
     tn = remap[torch.where(tn_keep >= 0, tn_keep, M).long()]
 
     pts_std = scale * (points_raw - shift)
-    if d == 2:
+    if d in (2, 3):
+        if d == 3:
+            grid_res = _grid_res_3d(tv.shape[0], grid_res)
         grid = _grid_device(
             torch.as_tensor(pts_std, device=tv.device), tv, grid_res
         )
-    elif d == 3:
-        grid_res = _grid_res_3d(tv.shape[0], grid_res)
-        grid = _bucket_grid(pts_std, tv.cpu().numpy(), grid_res)
     else:
         grid = np.zeros((1,) * d, dtype=np.int32)
         grid_res = 1
@@ -565,22 +564,31 @@ def walk_start(tri: DeviceTriangulation, q_raw) -> torch.Tensor:
 # Cell-candidate point location (the large-T path)
 # ---------------------------------------------------------------------------
 
-# build_cell_index(method="auto") builds a CPU triangulation's index on the
-# CPU from this many 2D simplexes on (the JAX package's threshold).
+# build_cell_index(method="auto") builds a CPU triangulation's index by the
+# device build from this many 2D (3D) simplexes on (the JAX package's
+# thresholds).
 DEVICE_INDEX_MIN_TRIS = 200_000
-_INDEX_3D = "the 3D cell index comes with ROADMAP Queue A item 7"
+DEVICE_INDEX_MIN_TETS = 32_768
+# The 3D index takes the packed layout while its table fits this many bytes,
+# else the two-stage layout (the JAX package's default budget, a TPU HBM
+# figure; a module constant that tests lower).
+CELLS3D_PACKED_BYTES = 1_500_000_000
 
 
 @dataclasses.dataclass(frozen=True)
 class CellIndex:
     """Per-cell candidate tables for point location.
 
-    A uniform G x G grid over the standardized data square; every cell
-    lists the triangles that intersect it (conservative rasterization),
-    each as 7 float32 fields: the query-centred score form
+    A uniform G^d grid over the standardized data cube; every cell lists
+    the simplexes that intersect it (conservative rasterization).  In 2D
+    each candidate is 7 float32 fields: the query-centred score form
     (g00, g01, g10, g11, b0, b1) and the triangle id as a float (exact for
     T < 2^24).  The row is field-major (all K g00s, then all K g01s, ...),
-    and empty slots score -inf through a 1e30 bias and id -1.
+    and empty slots score -inf through a 1e30 bias and id -1.  In 3D the
+    packed table is the same with 13 fields (9 g, 3 b, id); past
+    ``CELLS3D_PACKED_BYTES`` the two-stage layout holds int32 ids [G^3, K]
+    (-1 empty) in ``table`` and the 12 score floats per tetrahedron in
+    ``rows`` [T, 12].
 
     Coverage: a query inside a listed cell whose containing triangle
     intersects that cell always finds it.  Overflowed cells (more than K
@@ -598,13 +606,18 @@ class CellIndex:
     then of the order of the slack times the weight gradient.
     """
 
-    table: torch.Tensor     # [G^2, 7K] float32, field-major
-    overflow: torch.Tensor  # [G^2] bool: candidate list truncated
-    hint: torch.Tensor      # [G^2] int32: walk-start simplex per cell
+    table: torch.Tensor     # [G^d, (d*d+d+1) K] float32, or [G^3, K] int32
+    overflow: torch.Tensor  # [G^d] bool: candidate list truncated
+    hint: torch.Tensor      # [G^d] int32: walk-start simplex per cell
     res: int                # G
     k: int                  # K, candidates per cell
-    rows: torch.Tensor | None = None  # the 3D two-stage layout; None in 2D
+    rows: torch.Tensor | None = None  # [T, 12]: the 3D two-stage layout
     complete: bool = True
+    # Device build: dropped simplexes plus spilled pairs, and the pairs the
+    # bounding boxes within the span cap emitted (n_bad / n_pairs is the
+    # dropped share).
+    n_bad: int = 0
+    n_pairs: int = 0
 
 
 def _qcentered_tables(tri: DeviceTriangulation):
@@ -672,15 +685,17 @@ def _qcentered_host(tri: DeviceTriangulation):
     return g, bias
 
 
-def auto_index_method(device_type: str, n_tris: int) -> str:
+def auto_index_method(device_type: str, n_tris: int, dim: int = 2) -> str:
     """The build that ``build_cell_index(method="auto")`` takes.
 
     On CUDA always the device build: the numpy rasterizer would copy the
     triangulation to the host and the table back.  On the CPU the numpy
-    rasterizer below ``DEVICE_INDEX_MIN_TRIS`` simplexes, which lists every
-    intersection (a complete index), and the device build from there.
+    rasterizer below ``DEVICE_INDEX_MIN_TRIS`` triangles
+    (``DEVICE_INDEX_MIN_TETS`` tetrahedra), which lists every intersection
+    (a complete index), and the device build from there.
     """
-    if device_type == "cuda" or n_tris >= DEVICE_INDEX_MIN_TRIS:
+    thresh = DEVICE_INDEX_MIN_TRIS if dim == 2 else DEVICE_INDEX_MIN_TETS
+    if device_type == "cuda" or n_tris >= thresh:
         return "device"
     return "host"
 
@@ -691,28 +706,31 @@ def build_cell_index(
     K: int = 16,
     method: str = "auto",
 ) -> CellIndex:
-    """Rasterize the triangles into per-cell candidate lists, once.
+    """Rasterize the simplexes into per-cell candidate lists, once.
 
     Conservative: every (triangle, cell) intersection is listed.  Triangles
     whose bounding box spans at most 4096 cells take the box's cells that
     pass a half-plane test against the cell centre dilated by half a cell
     diagonal; larger ones (cage slivers) take an exact scanline pass.
+    Tetrahedra go to :func:`_build_cell_index_3d`, with K at least 24.
 
     ``method``: "host" is the numpy rasterizer (always complete); "device"
     builds on the triangulation's device (:func:`_build_cell_index_device`);
     "auto" takes :func:`auto_index_method`.  The result's tensors lie on
     the triangulation's device.
     """
-    if tri.dim == 3:
-        raise NotImplementedError(_INDEX_3D)
-    if tri.dim != 2:
+    if tri.dim not in (2, 3):
         raise NotImplementedError("cell index is 2D/3D")
     if method == "auto":
-        method = auto_index_method(tri.device.type, tri.n_tris)
+        method = auto_index_method(tri.device.type, tri.n_tris, tri.dim)
     if method == "device":
         return _build_cell_index_device(tri, grid_res, K)
     if method != "host":
         raise errors.InvalidArgumentError(f"unknown index method {method!r}")
+    if tri.dim == 3:
+        # 3D needs deeper lists: the JAX package measured 13.5 % of cells
+        # overflowing at K = 16 and about 4 % at K = 24 on 67k tetrahedra.
+        return _build_cell_index_3d(tri, grid_res, max(K, 24))
     pts = tri.points_std.cpu().numpy().astype(np.float64)
     tv = tri.tri_verts.cpu().numpy()
     T = tv.shape[0]
@@ -884,62 +902,280 @@ def build_cell_index(
     )
 
 
+def _build_cell_index_3d(
+    tri: DeviceTriangulation, grid_res: int | None = None, K: int = 24
+) -> CellIndex:
+    """3D cell index on the host: conservative tetrahedron rasterization.
+
+    Each tetrahedron emits the cells of its bounding box that pass an
+    exact box/half-space test on all four faces (margin: the support of
+    the half-cell box on the face normal), in chunks of at most 8M pairs.
+    Cells with more than K candidates are marked overflow, and the walk
+    answers their misses.  The packed layout is taken while its table fits
+    ``CELLS3D_PACKED_BYTES``, else the two-stage layout (see
+    :class:`CellIndex`).
+    """
+    pts = tri.points_std.cpu().numpy().astype(np.float64)
+    tv = tri.tri_verts.cpu().numpy()
+    T = tv.shape[0]
+    if grid_res is None:
+        # G = 1.7 T^(1/3): about 9 candidates per cell on uniform input.
+        grid_res = int(np.clip(round(1.7 * max(T, 1) ** (1.0 / 3.0)), 8, 160))
+    G = int(grid_res)
+    cell_w = 1.0 / G
+
+    verts = pts[tv]  # [T, 4, 3]
+    lo = np.clip(np.floor((verts.min(1) + 0.5) * G).astype(np.int64), 0, G - 1)
+    hi = np.clip(np.floor((verts.max(1) + 0.5) * G).astype(np.int64), 0, G - 1)
+    span = np.prod(hi - lo + 1, axis=1)
+
+    # Unit face normals pointing into the tetrahedron; face k is opposite
+    # vertex k.
+    normals = np.zeros((T, 4, 3))
+    offsets = np.zeros((T, 4))
+    for k, (i, j, l) in enumerate(_FACES_3D):
+        a, b, c = verts[:, i], verts[:, j], verts[:, l]
+        n = np.cross(b - a, c - a)
+        ln = np.linalg.norm(n, axis=1)
+        n = n / np.where(ln == 0, 1.0, ln)[:, None]
+        s = np.sum(n * (verts[:, k] - a), axis=1)
+        n = np.where(s[:, None] >= 0, n, -n)
+        normals[:, k] = n
+        offsets[:, k] = np.sum(n * a, axis=1)
+
+    pair_cell = []
+    pair_tri = []
+
+    def emit(ids):
+        """(cell, tet) pairs of the given tetrahedra, in chunks."""
+        if ids.size == 0:
+            return
+        nx = hi[ids, 0] - lo[ids, 0] + 1
+        ny = hi[ids, 1] - lo[ids, 1] + 1
+        nz = hi[ids, 2] - lo[ids, 2] + 1
+        cnt = nx * ny * nz
+        CH = 8_000_000  # pairs per chunk: bounds the host memory
+        starts = np.concatenate([[0], np.cumsum(cnt)])
+        pos = 0
+        while pos < ids.size:
+            end = int(np.searchsorted(starts, starts[pos] + CH, side="left"))
+            end = max(end, pos + 1)
+            sl = slice(pos, end)
+            rep = np.repeat(ids[sl], cnt[sl])
+            k = np.arange(rep.size, dtype=np.int64) - np.repeat(
+                np.cumsum(cnt[sl]) - cnt[sl], cnt[sl]
+            )
+            nxr = np.repeat(nx[sl], cnt[sl])
+            nyr = np.repeat(ny[sl], cnt[sl])
+            cx = lo[rep, 0] + k % nxr
+            cy = lo[rep, 1] + (k // nxr) % nyr
+            cz = lo[rep, 2] + k // (nxr * nyr)
+            C = np.stack(
+                [(cx + 0.5) * cell_w - 0.5,
+                 (cy + 0.5) * cell_w - 0.5,
+                 (cz + 0.5) * cell_w - 0.5], axis=1
+            )
+            keep = np.ones(rep.size, bool)
+            for kf in range(4):
+                nrm = normals[rep, kf]
+                d_in = np.sum(nrm * C, axis=1) - offsets[rep, kf]
+                margin = 0.5 * cell_w * np.abs(nrm).sum(axis=1) + 1e-12
+                keep &= d_in >= -margin
+            pair_tri.append(rep[keep].astype(np.int64))
+            pair_cell.append((cx[keep] * G + cy[keep]) * G + cz[keep])
+            pos = end
+
+    emit(np.nonzero(span <= 4096)[0])
+    emit(np.nonzero(span > 4096)[0])
+
+    cells_f = np.concatenate(pair_cell) if pair_cell else np.zeros(0, np.int64)
+    tris_f = np.concatenate(pair_tri) if pair_tri else np.zeros(0, np.int64)
+    order = np.argsort(cells_f, kind="stable")
+    cells_f = cells_f[order]
+    tris_f = tris_f[order]
+    counts = np.bincount(cells_f, minlength=G**3)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rank = (np.arange(cells_f.size, dtype=np.int64) - starts[cells_f]).astype(
+        np.int32
+    )
+    keep = rank < K
+    overflow = counts > K
+    rows_k = cells_f[keep]
+    cols_k = rank[keep]
+    tri_k = tris_f[keep]
+
+    # Walk-start hint: the first listed tetrahedron, else the bucket grid's.
+    hint = np.full(G**3, -1, np.int32)
+    first = cols_k == 0
+    hint[rows_k[first]] = tri_k[first].astype(np.int32)
+    empty = hint < 0
+    if empty.any():
+        gr = tri.grid_res
+        fallback = tri.grid_tri.cpu().numpy().reshape(-1)
+        idx = np.arange(G**3)
+        gx = np.minimum((idx // (G * G)) * gr // G, gr - 1)
+        gy = np.minimum(((idx // G) % G) * gr // G, gr - 1)
+        gz = np.minimum((idx % G) * gr // G, gr - 1)
+        hint[empty] = fallback[((gx * gr + gy) * gr + gz)[empty]]
+
+    gmat, bias = _qcentered_host(tri)
+    gmat = gmat.astype(np.float32).reshape(T, 9)
+    bias = bias.astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=tri.device)
+
+    if G**3 * 13 * K * 4 <= CELLS3D_PACKED_BYTES:
+        packed = np.zeros((G**3, 13, K), np.float32)
+        packed[:, 9:12, :] = 1e30  # empty slots score -inf
+        packed[:, 12, :] = -1.0
+        for f in range(9):
+            packed[rows_k, f, cols_k] = gmat[tri_k, f]
+        for f in range(3):
+            packed[rows_k, 9 + f, cols_k] = bias[tri_k, f]
+        packed[rows_k, 12, cols_k] = tri_k.astype(np.float32)
+        return CellIndex(
+            table=dev(packed.reshape(G**3, 13 * K)),
+            overflow=dev(overflow),
+            hint=dev(hint),
+            res=G,
+            k=K,
+        )
+    ids = np.full((G**3, K), -1, np.int32)
+    ids[rows_k, cols_k] = tri_k.astype(np.int32)
+    return CellIndex(
+        table=dev(ids),
+        overflow=dev(overflow),
+        hint=dev(hint),
+        res=G,
+        k=K,
+        rows=dev(np.concatenate([gmat, bias], axis=1)),
+    )
+
+
+# Face k of a tetrahedron is opposite vertex k.
+_FACES_3D = ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2))
+
+
 def _device_index_statics(T: int, d: int, grid_res, K):
-    """(G, K, span_cap, P) of the device index build (2D)."""
-    if d != 2:
-        raise NotImplementedError(_INDEX_3D)
+    """(G, K, span_cap, P) of the device index build.
+
+    3D: K at least 24; a tetrahedron whose box spans more than 1,024 cells
+    (hull and cage-gap geometry) emits nothing, and the pair budget is 128
+    per tetrahedron (the JAX package measured 34 % of pairs dropped at a
+    budget of 80 on 67k tetrahedra).
+    """
+    if d == 2:
+        G = (
+            int(np.clip(int(np.sqrt(max(T, 1) / 2.0)), 16, 2048))
+            if grid_res is None
+            else int(grid_res)
+        )
+        return G, int(K), 64, 8 * T
     G = (
-        int(np.clip(int(np.sqrt(max(T, 1) / 2.0)), 16, 2048))
+        int(np.clip(round(1.7 * max(T, 1) ** (1.0 / 3.0)), 8, 160))
         if grid_res is None
         else int(grid_res)
     )
-    span_cap = 64
-    pair_budget = 8
-    return G, int(K), span_cap, pair_budget * T
+    return G, max(int(K), 24), 1024, 128 * T
+
+
+def _cross(u, v):
+    """Cross product of [..., 3] rows, in ``jnp.cross``'s order of operations."""
+    return torch.stack(
+        [
+            u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+            u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+            u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0],
+        ],
+        -1,
+    )
+
+
+def _face_coefficients(verts, cell_w: float):
+    """[T, d+1, d+1] float32 half-space coefficients (a_0..a_{d-1}, c0) per
+    edge (2D) or face (3D): a cell centre C may touch the simplex only if
+    ``sum_j a_j C_j + c0 >= 0`` on every one.  The normals point inward and
+    c0 holds the half cell's support on the normal plus a float32 slack."""
+    slack = 32.0 * machine.eps(np.float32)
+    coeff = []
+    if verts.shape[-1] == 2:
+        a, b, c = verts[:, 0], verts[:, 1], verts[:, 2]
+        area = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (
+            b[:, 1] - a[:, 1]
+        ) * (c[:, 0] - a[:, 0])
+        sgn = torch.where(area >= 0, 1.0, -1.0).to(verts.dtype)
+        for p_, q_ in ((a, b), (b, c), (c, a)):
+            ex = q_[:, 0] - p_[:, 0]
+            ey = q_[:, 1] - p_[:, 1]
+            mag = torch.abs(ex) + torch.abs(ey)
+            c0 = (
+                -sgn * (ex * p_[:, 1] - ey * p_[:, 0])
+                + 0.5 * cell_w * mag
+                + slack * mag
+            )
+            coeff.append(torch.stack([-sgn * ey, sgn * ex, c0], -1))
+        return torch.stack(coeff, 1)
+    for kf, (i_, j_, l_) in enumerate(_FACES_3D):
+        a, b, c = verts[:, i_], verts[:, j_], verts[:, l_]
+        n = _cross(b - a, c - a)
+        e = verts[:, kf] - a
+        s = n[:, 0] * e[:, 0] + n[:, 1] * e[:, 1] + n[:, 2] * e[:, 2]
+        n = torch.where(s[:, None] >= 0, n, -n)
+        mag = torch.abs(n[:, 0]) + torch.abs(n[:, 1]) + torch.abs(n[:, 2])
+        na = n[:, 0] * a[:, 0] + n[:, 1] * a[:, 1] + n[:, 2] * a[:, 2]
+        c0 = -na + 0.5 * cell_w * mag + slack * mag
+        coeff.append(torch.cat([n, c0[:, None]], -1))
+    return torch.stack(coeff, 1)
 
 
 def _device_index_kernel(
-    tri: DeviceTriangulation, G: int, K: int, span_cap: int, P: int
+    tri: DeviceTriangulation, G: int, K: int, span_cap: int, P: int,
+    packed: bool = True,
 ):
-    """The 2D cell-index build on the triangulation's device.
+    """The cell-index build on the triangulation's device (2D and 3D).
 
-      1. bounding-box cell ranges per triangle; a triangle whose box spans
+      1. bounding-box cell ranges per simplex; a simplex whose box spans
          more than ``span_cap`` cells (a cage sliver) emits nothing and
          makes the index incomplete;
-      2. a fixed budget of P (triangle, cell) pairs: exclusive-cumsum
-         starts, a scatter-max and a cummax give each pair its triangle,
+      2. a fixed budget of P (simplex, cell) pairs: exclusive-cumsum
+         starts, a scatter-max and a cummax give each pair its simplex,
          division its cell (pairs past the budget make it incomplete);
       3. a conservative filter: keep a pair iff the cell centre lies inside
-         every edge's half-plane pushed out by the cell's support on the
-         edge normal plus a float32 slack;
+         every edge's (face's) half-space pushed out by the cell's support
+         on the normal plus a float32 slack;
       4. ranking: each cell keeps its K lowest pair ids (the host's
          first-K-by-id order), by one sort;
       5. packing: one row scatter into a row-major table, then one
-         transpose to the field-major [G^2, 7K] layout.
+         transpose to the field-major [G^d, NF K] layout (NF = 7 in 2D, 13
+         in 3D); or, with ``packed`` False (3D), the int32 id table.
 
-    Returns ``(table, overflow, hint, n_bad)``; ``n_bad`` is the 0-d count
-    of dropped triangles and spilled pairs (0: the index is complete).
-    ``mode="drop"`` writes of the JAX build go to a trash row that is cut
-    off, and the pair starts are int64.
+    Returns ``(table, overflow, hint, counts, rows)``; ``counts`` holds
+    ``n_bad``, the dropped simplexes and spilled pairs (0: the index is
+    complete), and the emitted pairs, ``rows`` the [T, 12] score rows of
+    the two-stage layout (None when packed).  ``mode="drop"`` writes of the JAX build go to a
+    trash row that is cut off, and the pair starts are int64.
     """
+    d = tri.dim
     dev = tri.device
     T = tri.n_tris
     f32 = torch.float32
     i64 = torch.int64
     cell_w = 1.0 / G
-    NC = G * G
-    verts = tri.points_std[tri.tri_verts.long()].to(f32)  # [T, 3, 2]
+    NC = G**d
+    verts = tri.points_std[tri.tri_verts.long()].to(f32)  # [T, d+1, d]
     lo = torch.clamp(torch.floor((verts.amin(1) + 0.5) * G), 0, G - 1).long()
     hi = torch.clamp(torch.floor((verts.amax(1) + 0.5) * G), 0, G - 1).long()
-    spans = hi - lo + 1  # [T, 2]
-    cnt = spans[:, 0] * spans[:, 1]
+    spans = hi - lo + 1  # [T, d]
+    cnt = torch.prod(spans, 1)
     emit = cnt <= span_cap
     cnt_e = torch.where(emit, cnt, 0)
     starts = torch.cumsum(cnt_e, 0) - cnt_e
     total = starts[-1] + cnt_e[-1]
     n_bad = torch.sum(~emit) + torch.clamp(total - P, min=0)
+    counts = torch.stack([n_bad, total])
 
-    # 2. pair -> owning triangle: scatter each emitting triangle's id at its
+    # 2. pair -> owning simplex: scatter each emitting simplex's id at its
     # start (distinct among emitters) and forward-fill by cummax.  Pairs
     # past the budget decompose to junk cells; a junk pair never contains
     # a query of its cell, and n_bad > 0 makes every miss walk.
@@ -952,52 +1188,49 @@ def _device_index_kernel(
     pvalid = pidx < torch.clamp(total, max=P)
     k_in = pidx - starts[rep]
     lo_p = lo[rep]
-    sp_x = spans[rep, 0]
-    cx = lo_p[:, 0] + k_in % sp_x
-    cy = lo_p[:, 1] + k_in // sp_x
-    cid = cx * G + cy
-
-    # 3. conservative filter: per-edge coefficients with the support margin
-    # folded into the offset; keep iff ax*Cx + ay*Cy + c0 >= 0 on all edges.
-    slack = 32.0 * machine.eps(np.float32)
-    a, b, c = verts[:, 0], verts[:, 1], verts[:, 2]
-    area = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (
-        b[:, 1] - a[:, 1]
-    ) * (c[:, 0] - a[:, 0])
-    sgn = torch.where(area >= 0, 1.0, -1.0).to(f32)
-    coeff = []
-    for p_, q_ in ((a, b), (b, c), (c, a)):
-        ex = q_[:, 0] - p_[:, 0]
-        ey = q_[:, 1] - p_[:, 1]
-        mag = torch.abs(ex) + torch.abs(ey)
-        c0 = (
-            -sgn * (ex * p_[:, 1] - ey * p_[:, 0])
-            + 0.5 * cell_w * mag
-            + slack * mag
+    sp_p = spans[rep]
+    r = k_in // sp_p[:, 0]
+    if d == 2:
+        cxy = torch.stack([lo_p[:, 0] + k_in % sp_p[:, 0], lo_p[:, 1] + r], -1)
+        cid = cxy[:, 0] * G + cxy[:, 1]
+    else:
+        cxy = torch.stack(
+            [
+                lo_p[:, 0] + k_in % sp_p[:, 0],
+                lo_p[:, 1] + r % sp_p[:, 1],
+                lo_p[:, 2] + r // sp_p[:, 1],
+            ],
+            -1,
         )
-        coeff.append(torch.stack([-sgn * ey, sgn * ex, c0], -1))
-    fc = torch.cat(coeff, -1)[rep]  # [P, 9]
-    Cx = (cx.to(f32) + 0.5) * cell_w - 0.5
-    Cy = (cy.to(f32) + 0.5) * cell_w - 0.5
+        cid = (cxy[:, 0] * G + cxy[:, 1]) * G + cxy[:, 2]
+    del lo_p, sp_p, k_in, r
+
+    # 3. conservative filter, one edge (face) at a time.
+    face = _face_coefficients(verts, cell_w)  # [T, d+1, d+1]
+    Cc = (cxy.to(f32) + 0.5) * cell_w - 0.5  # [P, d]
     keep = pvalid
-    for kf in range(3):
-        v = fc[:, 3 * kf + 2]
-        v = v + fc[:, 3 * kf] * Cx
-        v = v + fc[:, 3 * kf + 1] * Cy
+    for kf in range(d + 1):
+        blk = face[:, kf][rep]  # [P, d+1]
+        v = blk[:, d]
+        for j in range(d):
+            v = v + blk[:, j] * Cc[:, j]
         keep = keep & (v >= 0)
+    del Cc, cxy
     cidk = torch.where(keep, cid, NC)
 
     # 4. ranking -> per-pair column; col < K wins a table slot.
-    # Pairs are in triangle-id order, so one sort on the unique key (cell,
+    # Pairs are in simplex-id order, so one sort on the unique key (cell,
     # pair id) puts each cell's run in the host's first-K-by-id order.
     key, order = torch.sort(cidk * P + pidx)
     skey = key // P
+    del key, cidk
     newrun = torch.ones(P, dtype=torch.bool, device=dev)
     newrun[1:] = skey[1:] != skey[:-1]
     runstart = torch.cummax(torch.where(newrun, pidx, -1), 0).values
     srank = torch.clamp(pidx - runstart, max=K)
     col = torch.full((P,), K, dtype=i64, device=dev)
     col[order] = torch.where(skey < NC, srank, K)
+    del skey, order, runstart, srank, newrun
     got = keep & (col < K)
     overflow = torch.zeros(NC + 1, dtype=torch.bool, device=dev)
     overflow[torch.where(keep & (col >= K), cid, NC)] = True
@@ -1005,33 +1238,44 @@ def _device_index_kernel(
 
     # 5. score fields and packing.
     A, bias = _qcentered_tables(tri)
+    NF = d * d + d + 1
     score = torch.cat(
         [
-            A.to(f32).reshape(T, 4),
+            A.to(f32).reshape(T, d * d),
             bias.to(f32),
             torch.arange(T, dtype=f32, device=dev)[:, None],
         ],
         -1,
-    )  # [T, 7]
+    )  # [T, NF]
     # hint: the col == 0 winner, else the walk-start bucket grid's simplex.
     hint = torch.full((NC + 1,), -1, dtype=torch.int32, device=dev)
     hint[torch.where(got & (col == 0), cid, NC)] = rep.to(torch.int32)
     gr = tri.grid_res
     idx = torch.arange(NC, device=dev)
-    fb = tri.grid_tri.reshape(-1)[
-        ((idx // G) * gr // G) * gr + (idx % G) * gr // G
-    ]
-    hint = torch.where(hint[:NC] >= 0, hint[:NC], fb)
+    if d == 2:
+        fb = ((idx // G) * gr // G) * gr + (idx % G) * gr // G
+    else:
+        gx = torch.clamp((idx // (G * G)) * gr // G, max=gr - 1)
+        gy = torch.clamp(((idx // G) % G) * gr // G, max=gr - 1)
+        gz = torch.clamp((idx % G) * gr // G, max=gr - 1)
+        fb = (gx * gr + gy) * gr + gz
+    hint = hint[:NC]
+    hint = torch.where(hint >= 0, hint, tri.grid_tri.reshape(-1)[fb])
 
-    init_row = torch.zeros(7, dtype=f32, device=dev)
-    init_row[4:6] = 1e30
-    init_row[6] = -1.0
-    table_rm = init_row.expand(NC * K + 1, 7).clone()
+    if not packed:
+        ids = torch.full((NC * K + 1,), -1, dtype=torch.int32, device=dev)
+        ids[rowidx] = rep.to(torch.int32)
+        rows = score[:, : NF - 1].contiguous()
+        return ids[: NC * K].reshape(NC, K), overflow[:NC], hint, counts, rows
+    init_row = torch.zeros(NF, dtype=f32, device=dev)
+    init_row[d * d : d * d + d] = 1e30
+    init_row[NF - 1] = -1.0
+    table_rm = init_row.expand(NC * K + 1, NF).clone()
     table_rm[rowidx] = score[rep]
     table = (
-        table_rm[: NC * K].reshape(NC, K, 7).transpose(1, 2).reshape(NC, 7 * K)
+        table_rm[: NC * K].reshape(NC, K, NF).transpose(1, 2).reshape(NC, NF * K)
     )
-    return table, overflow[:NC], hint, n_bad
+    return table, overflow[:NC], hint, counts, None
 
 
 def _build_cell_index_device(
@@ -1041,24 +1285,77 @@ def _build_cell_index_device(
     pair_budget_override: int | None = None,
 ) -> CellIndex:
     """The cell index built on the triangulation's device
-    (:func:`_device_index_kernel`).  Reads one scalar back, the drop
-    count, to set ``complete``.  ``pair_budget_override`` (pairs per
-    triangle) is a test hook that forces budget spills."""
+    (:func:`_device_index_kernel`).  A 3D index takes the packed layout
+    while it fits ``CELLS3D_PACKED_BYTES``.  Reads two scalars back, the
+    drop and pair counts, to set ``complete``, ``n_bad`` and ``n_pairs``.
+    ``pair_budget_override`` (pairs per simplex) is a test hook that forces
+    budget spills."""
     T = tri.n_tris
     G, K, span_cap, P = _device_index_statics(T, tri.dim, grid_res, K)
     if pair_budget_override is not None:
         P = pair_budget_override * T
-    table, overflow, hint, n_bad = _device_index_kernel(
-        tri, G, K, span_cap, P
+    packed = tri.dim == 2 or G**3 * 13 * K * 4 <= CELLS3D_PACKED_BYTES
+    table, overflow, hint, counts, rows = _device_index_kernel(
+        tri, G, K, span_cap, P, packed
     )
+    n_bad, n_pairs = counts.tolist()
     return CellIndex(
         table=table,
         overflow=overflow,
         hint=hint,
         res=G,
         k=K,
-        complete=int(n_bad) == 0,
+        rows=rows,
+        complete=n_bad == 0,
+        n_bad=n_bad,
+        n_pairs=n_pairs,
     )
+
+
+def _locate_cells_score_3d(tri: DeviceTriangulation, cells: CellIndex, q_raw):
+    """3D candidate scoring: (cid, leaf, best min-weight, q_std), [B] each.
+
+    Packed layout: one [B0, 13K] row gather per block of queries, sliced
+    field-major as in 2D.  Two-stage layout: a [B0, K] id gather, then a
+    [B0 K, 12] gather of the candidates' score rows.  Blocks of 262,144
+    (packed) or 65,536 (two-stage) queries bound the gathered rows' memory
+    to about 330 and 200 MB (JAX: ``lax.map`` over 262,144 and 8,192, sized
+    for the TPU's lane padding).
+    """
+    G, K = cells.res, cells.k
+    dtype = q_raw.dtype
+    B = q_raw.shape[0]
+    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+    cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
+    cid = (cell[:, 0] * G + cell[:, 1]) * G + cell[:, 2]
+    dq = q_raw - tri.shift.to(dtype)
+    packed = cells.rows is None
+    block = 262144 if packed else 65536
+    leaf = torch.empty(B, dtype=torch.int64, device=q_raw.device)
+    bestw = torch.empty(B, dtype=dtype, device=q_raw.device)
+    for s in range(0, B, block):
+        cb = cid[s : s + block]
+        if packed:
+            fld = cells.table[cb].to(dtype).split(K, dim=1)  # 13 x [b, K]
+            tid = fld[12]
+            ok = tid >= 0
+        else:
+            tid = cells.table[cb]  # [b, K] int32
+            ok = tid >= 0
+            r = cells.rows[torch.where(ok, tid, 0).long()].to(dtype)
+            fld = r.unbind(-1)  # 12 x [b, K]
+        dqx, dqy, dqz = (dq[s : s + block, j : j + 1] for j in range(3))
+        c0 = fld[0] * dqx + fld[1] * dqy + fld[2] * dqz + fld[9]
+        c1 = fld[3] * dqx + fld[4] * dqy + fld[5] * dqz + fld[10]
+        c2 = fld[6] * dqx + fld[7] * dqy + fld[8] * dqz + fld[11]
+        minw = torch.minimum(
+            torch.minimum(torch.minimum(c0, c1), c2), 1.0 - c0 - c1 - c2
+        )
+        minw = torch.where(ok, minw, -torch.inf)
+        best = torch.argmax(minw, dim=-1, keepdim=True)
+        bestw[s : s + block] = minw.gather(1, best)[:, 0]
+        leaf[s : s + block] = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
+    return cid, leaf, bestw, q_std
 
 
 def locate_cells(
@@ -1070,44 +1367,47 @@ def locate_cells(
 ):
     """Batched location by the cell index, with the walk as fallback.
 
-    One [B, 7K] row gather scores the candidates of each query's cell in
-    the query dtype.  The best one's weights come from the anchored affine
-    maps in the query dtype.  Queries that the index cannot settle walk
-    from their cell's hint for at most ``fallback_steps`` steps: those in
-    an overflowed cell or outside the square that no candidate contains,
-    those whose score and weights disagree, and, for an incomplete index,
-    every query that no candidate contains.  ``fallback="none"`` skips the
-    walk: not-contained queries then report in_domain=False.
+    One row gather per query scores the candidates of its cell in the query
+    dtype (:func:`_locate_cells_score_3d` in 3D).  The best one's weights
+    come from the anchored affine maps in the query dtype.  Queries that
+    the index cannot settle walk from their cell's hint for at most
+    ``fallback_steps`` steps: those in an overflowed cell or outside the
+    cube that no candidate contains, those whose score and weights
+    disagree, and, for an incomplete index, every query that no candidate
+    contains.  ``fallback="none"`` skips the walk: not-contained queries
+    then report in_domain=False.
 
     The walk takes exactly the queries that need it, found by one host
     read, so the JAX package's ``fallback_frac`` buffer has no counterpart.
 
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
     """
-    if tri.dim != 2:
-        raise NotImplementedError(_INDEX_3D)
-    G, K = cells.res, cells.k
-    dtype = q_raw.dtype
-    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
-    cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
-    cid = cell[:, 0] * G + cell[:, 1]
-    rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
-    g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
-    shift = tri.shift.to(dtype)
-    qx = (q_raw[:, 0] - shift[0])[:, None]
-    qy = (q_raw[:, 1] - shift[1])[:, None]
-    c0 = g00 * qx + g01 * qy + b0
-    c1 = g10 * qx + g11 * qy + b1
-    minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
-    minw = torch.where(tid >= 0, minw, -torch.inf)
-    best = torch.argmax(minw, dim=-1, keepdim=True)
-    bestw = minw.gather(1, best)[:, 0]
-    leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
+    if tri.dim == 3:
+        cid, leaf, bestw, q_std = _locate_cells_score_3d(tri, cells, q_raw)
+    else:
+        G, K = cells.res, cells.k
+        dtype = q_raw.dtype
+        q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+        cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
+        cid = cell[:, 0] * G + cell[:, 1]
+        rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
+        g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
+        shift = tri.shift.to(dtype)
+        qx = (q_raw[:, 0] - shift[0])[:, None]
+        qy = (q_raw[:, 1] - shift[1])[:, None]
+        c0 = g00 * qx + g01 * qy + b0
+        c1 = g10 * qx + g11 * qy + b1
+        minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
+        minw = torch.where(tid >= 0, minw, -torch.inf)
+        best = torch.argmax(minw, dim=-1, keepdim=True)
+        bestw = minw.gather(1, best)[:, 0]
+        leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
     w = _weights(tri, leaf, q_raw)
     # The float32 score is judged at float32's slack, the weights at the
     # query dtype's.
-    contained = bestw >= -4.0 * machine.sqrt_eps(cells.table.dtype)
-    w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(dtype), dim=-1)
+    score_dtype = cells.table.dtype if cells.rows is None else cells.rows.dtype
+    contained = bestw >= -4.0 * machine.sqrt_eps(score_dtype)
+    w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(q_raw.dtype), dim=-1)
     outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
     if cells.complete:
         bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (

@@ -10,8 +10,8 @@ Engines:
   * ``"device"`` — the 2D parallel build on ``device``
     (models.device_delaunay), whose flip verdicts run in a CUDA kernel on
     the card;
-  * ``"cavity"`` (3D) — the device cavity build, which comes with a later
-    slice of the port;
+  * ``"cavity"`` — the parallel Bowyer-Watson build on ``device`` for any
+    d >= 2 (models.device_cavity);
   * ``"auto"`` — device for d == 2, cavity for d == 3, host otherwise, as in
     the JAX package.
 
@@ -27,17 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import device_delaunay, device_tri, host_tree
+from . import device_cavity, device_delaunay, device_tri, host_tree
 from ..utils import errors
 
 DEFAULT = host_tree.DEFAULT
 NOSTANDARDIZE = host_tree.NOSTANDARDIZE
 ISOSCALE = host_tree.ISOSCALE
-
-_NOT_YET = {
-    "cavity": "the cavity engine comes with ROADMAP Queue A item 7; "
-    "use engine='host'",
-}
 
 
 class ScatteredInterp:
@@ -45,8 +40,9 @@ class ScatteredInterp:
 
     device: where the triangulation is built and lives, and queries run
     ("cuda" unless the caller asks for the CPU).  dtype: the precision of
-    the device build's predicates and of the query path; ``None`` picks
-    float32 on CUDA (the fast path) and float64 on the CPU (GSL parity).
+    the device builds' predicates and of the query path; ``None`` picks
+    float32 on CUDA (the fast path) and float64 on the CPU (GSL parity);
+    ``"accurate"`` is float64 on every device.
     """
 
     name = "linear_simplex"
@@ -66,7 +62,9 @@ class ScatteredInterp:
         device="cuda",
     ):
         device = torch.device(device)
-        if dtype is None:
+        if dtype == "accurate":
+            dtype = torch.float64
+        elif dtype is None:
             dtype = torch.float32 if device.type == "cuda" else torch.float64
         sites = np.asarray(sites, np.float64)
         values = np.asarray(values, np.float64)
@@ -79,15 +77,16 @@ class ScatteredInterp:
             )
         if engine == "auto":
             engine = "device" if d == 2 else "cavity" if d == 3 else "host"
-        if engine in _NOT_YET:
-            raise NotImplementedError(_NOT_YET[engine])
-        if engine not in ("host", "device"):
+        if engine not in ("host", "device", "cavity"):
             raise errors.InvalidArgumentError(f"unknown engine {engine!r}")
         self.engine = engine
         self.dim = d
         self.n_sites = n
-        if engine == "device":
-            tri, self.shuffle = device_delaunay.triangulate(
+        if engine in ("device", "cavity"):
+            build = (
+                device_delaunay if engine == "device" else device_cavity
+            ).triangulate
+            tri, self.shuffle = build(
                 sites, lo=lo, hi=hi, flags=flags, key=key, dtype=dtype,
                 grid_res=grid_res, device=device,
             )

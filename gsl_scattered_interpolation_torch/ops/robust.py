@@ -94,6 +94,136 @@ def _p_diff(a, b):
     return _two_sum(a, -b)
 
 
+def _stack(pairs):
+    """One pair of stacked tensors from a list of pairs."""
+    return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+
+
+def _take(pair, idx):
+    return pair[0][idx], pair[1][idx]
+
+
+def _det3_ds(ax, ay, az, bx, by, bz, cx, cy, cz, sc):
+    """Double-single 3x3 determinant of rows (a, b, c); args are pairs.
+
+    by*cz - bz*cy, bx*cz - bz*cx, bx*cy - by*cx, then
+    (ax*m1 - ay*m2) + az*m3, with the six products, the three minors and
+    the three terms each evaluated stacked (one launch per operation)."""
+    p = _p_mul(
+        _stack([by, bz, bx, bz, bx, by]), _stack([cz, cy, cz, cx, cy, cx]), sc
+    )
+    m = _p_sub(_take(p, slice(0, 6, 2)), _take(p, slice(1, 6, 2)))
+    t = _p_mul(_stack([ax, ay, az]), m, sc)
+    return _p_add(_p_sub(_take(t, 0), _take(t, 1)), _take(t, 2))
+
+
+def _rows_3d(v, w):
+    """The exact differences v - w of stacked points [k, ..., 3], as three
+    column pairs [k, ...]."""
+    hi, lo = _two_sum(v, -w)
+    return [(hi[..., j], lo[..., j]) for j in range(3)]
+
+
+def orient3d_ds(a, b, c, d):
+    """Compensated signed 6x volume of the tetrahedron (a, b, c, d); inputs
+    [..., 3].  Positive iff d sees (a, b, c) counter-clockwise."""
+    sc = _split_const(a.dtype)
+    r = _rows_3d(torch.stack(torch.broadcast_tensors(a, b, c)), d)
+    rows = [_take(r[j], i) for i in range(3) for j in range(3)]
+    return _det3_ds(*rows, sc)[0]
+
+
+# Minor k of the 4 rows (v_i - e) drops row k; minor 4 is the orientation
+# determinant of the rows (a - d, b - d, c - d), held as rows 4..6.
+_MINOR_ROWS = ((1, 0, 0, 0, 4), (2, 2, 1, 1, 5), (3, 3, 3, 2, 6))
+
+
+def insphere_orient3d_ds(a, b, c, d, e):
+    """Compensated 3D in-circumsphere and orientation determinants,
+    ``(insphere_ds(a, b, c, d, e), orient3d_ds(a, b, c, d))``, evaluated
+    together: the seven difference rows, then the five 3x3 minors, each
+    stacked on a leading axis.  Each element sees the JAX package's
+    operations in its order."""
+    sc = _split_const(a.dtype)
+    a, b, c, d, e = torch.broadcast_tensors(a, b, c, d, e)
+    r = _rows_3d(torch.stack([a, b, c, d, a, b, c]), torch.stack([e, e, e, e, d, d, d]))
+    rows = [_take(r[j], list(idx)) for idx in _MINOR_ROWS for j in range(3)]
+    m = _det3_ds(*rows, sc)  # [5, ...]
+    rel = _stack([_take(r[j], slice(0, 4)) for j in range(3)])  # [3, 4, ...]
+    sq = _p_mul(rel, rel, sc)
+    lift = _p_add(_p_add(_take(sq, 0), _take(sq, 1)), _take(sq, 2))
+    # la*det(b,c,d), lb*det(a,c,d), lc*det(a,b,d), ld*det(a,b,c)
+    t = _p_mul(lift, _take(m, slice(0, 4)), sc)
+    t1, t2, t3, t4 = (_take(t, k) for k in range(4))
+    # The renormalized head alone carries the sign (h == 0 => value == 0).
+    return _p_add(_p_sub(t2, t1), _p_sub(t4, t3))[0], m[0][4]
+
+
+def insphere_ds(a, b, c, d, e):
+    """Compensated 3D in-circumsphere determinant; inputs [..., 3].
+
+    det[(v_i - e | |v_i - e|^2)] over v in (a, b, c, d), expanded along the
+    lift column with a global -1.  Multiply by
+    ``sign(orient3d_ds(a, b, c, d))``: the product is positive iff e lies
+    strictly inside the circumsphere.
+    """
+    return insphere_orient3d_ds(a, b, c, d, e)[0]
+
+
+def _detn_ds(rows, sc):
+    """Double-single determinant of an n x n matrix of pairs (a list of n
+    rows of n (hi, lo) pairs), by cofactor expansion along the first row."""
+    n = len(rows)
+    if n == 1:
+        return rows[0][0]
+    if n == 2:
+        return _p_sub(
+            _p_mul(rows[0][0], rows[1][1], sc),
+            _p_mul(rows[0][1], rows[1][0], sc),
+        )
+    if n == 3:
+        return _det3_ds(*rows[0], *rows[1], *rows[2], sc)
+    acc = None
+    for j in range(n):
+        sub = [[row[k] for k in range(n) if k != j] for row in rows[1:]]
+        t = _p_mul(rows[0][j], _detn_ds(sub, sc), sc)
+        if j % 2 == 1:
+            t = (-t[0], -t[1])
+        acc = t if acc is None else _p_add(acc, t)
+    return acc
+
+
+def orientnd_ds(verts):
+    """Compensated ``det(verts[1:] - verts[0])`` in any dimension;
+    ``verts`` [..., d+1, d]."""
+    sc = _split_const(verts.dtype)
+    d = verts.shape[-1]
+    base = verts[..., 0, :]
+    rows = [
+        [_p_diff(verts[..., i, j], base[..., j]) for j in range(d)]
+        for i in range(1, d + 1)
+    ]
+    return _detn_ds(rows, sc)[0]
+
+
+def inspherend_ds(verts, q):
+    """Compensated ``(-1)^d det[(verts - q | |verts - q|^2)]`` in any
+    dimension; ``verts`` [..., d+1, d], ``q`` [..., d].  Multiply by
+    ``sign(orientnd_ds(verts))``: positive iff q lies strictly inside the
+    circumsphere."""
+    sc = _split_const(verts.dtype)
+    d = verts.shape[-1]
+    rows = []
+    for i in range(d + 1):
+        rel = [_p_diff(verts[..., i, j], q[..., j]) for j in range(d)]
+        lift = _p_mul(rel[0], rel[0], sc)
+        for j in range(1, d):
+            lift = _p_add(lift, _p_mul(rel[j], rel[j], sc))
+        rows.append(rel + [lift])
+    h = _detn_ds(rows, sc)[0]
+    return h if d % 2 == 0 else -h
+
+
 def incircle_ds(a, b, c, d):
     """Compensated 2D incircle determinant; inputs [..., 2].
 

@@ -248,11 +248,12 @@ def test_arguments_checked():
         dt.interp(tri, torch.zeros(303, dtype=torch.float64), Q, method="nope")
     with pytest.raises(errors.InvalidArgumentError, match="unknown index method"):
         dt.build_cell_index(tri, method="nope")
-    sites3 = np.random.default_rng(2).uniform(-0.5, 0.5, size=(30, 3))
-    tri3 = _port(jdt.freeze(jht.build(sites3, flags=jht.NOSTANDARDIZE)))
+    # The index is 2D and 3D (tests/test_torch_cell_index_3d.py); 4D raises.
+    sites4 = np.random.default_rng(2).uniform(-0.5, 0.5, size=(12, 4))
+    tri4 = _port(jdt.freeze(jht.build(sites4, flags=jht.NOSTANDARDIZE)))
     for method in ("host", "device"):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            dt.build_cell_index(tri3, method=method)
+        with pytest.raises(NotImplementedError, match="2D/3D"):
+            dt.build_cell_index(tri4, method=method)
 
 
 @pytest.mark.parametrize("rank", ["sort", "minround"])

@@ -308,3 +308,59 @@ def test_device_grid_starts_reach_every_leaf(cuda):
     assert bool((w >= -1e-5).all())  # each leaf holds its query within f32 noise
     dense, _, _ = device_tri.locate_dense(tri32, q)
     assert (leaf != dense).float().mean() < 1e-3  # ties on shared edges
+
+
+def _canon(tv):
+    return {tuple(sorted(r)) for r in tv.tolist()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cavity_build_on_card_equals_cpu(cuda, dtype):
+    # The 3D cavity build, seeded (3,000 sites, seed_min lowered: 2,400
+    # seeded, 600 inserted by rounds), on the card and on the CPU: the same
+    # tetrahedra, the same rounds, and no launch of either kernel.
+    from gsl_scattered_interpolation_torch.models import device_cavity as dc
+    from gsl_scattered_interpolation_torch.ops import candmath
+
+    sites = np.random.default_rng(5).uniform(-0.5, 0.5, size=(3000, 3))
+    stats = {}, {}
+    before = locate.locate2d_cuda.launches, candmath.edge_candidates_math_cuda.launches
+    ours, _ = dc.triangulate(sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype, seed_min=64,
+                             device=cuda, stats=stats[0])
+    ref, _ = dc.triangulate(sites, flags=host_tree.NOSTANDARDIZE, dtype=dtype, seed_min=64,
+                            device="cpu", stats=stats[1])
+    assert (locate.locate2d_cuda.launches, candmath.edge_candidates_math_cuda.launches) == before
+    assert ours.tri_verts.device.type == "cuda"
+    assert _canon(ours.tri_verts.cpu()) == _canon(ref.tri_verts)
+    for key in ("seed_sites", "seed_left_out", "winners", "cavity_cap"):
+        assert stats[0][key] == stats[1][key], key
+    torch.testing.assert_close(ours.grid_tri.cpu(), ref.grid_tri, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_cell_index_3d_on_card_equals_cpu(cuda, monkeypatch, packed):
+    # The 3D device index on the card against the same build on the CPU,
+    # in both layouts, and the 3D query path through it.
+    from gsl_scattered_interpolation_torch.models import device_cavity as dc
+
+    if not packed:
+        monkeypatch.setattr(device_tri, "CELLS3D_PACKED_BYTES", 0)
+    sites = np.random.default_rng(9).uniform(-0.5, 0.5, size=(3000, 3))
+    cpu, sh = dc.triangulate(sites, flags=host_tree.NOSTANDARDIZE, device="cpu")
+    ours = device_tri._build_cell_index_device(cpu.to(cuda))
+    ref = device_tri._build_cell_index_device(cpu)
+    assert (ours.rows is None) == packed == (ref.rows is None)
+    assert (ours.n_bad, ours.n_pairs, ours.complete) == (ref.n_bad, ref.n_pairs, ref.complete)
+    for name in ("overflow", "hint") + (() if packed else ("table", "rows")):
+        torch.testing.assert_close(getattr(ours, name).cpu(), getattr(ref, name), rtol=0, atol=0)
+    if packed:
+        got = ours.table.cpu().reshape(-1, 13, ours.k)
+        want = ref.table.reshape(-1, 13, ref.k)
+        torch.testing.assert_close(got[:, 12], want[:, 12], rtol=0, atol=0)
+        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1
+    resp = device_tri.response_for_build(sh, np.cos(3 * sites[:, 0]) + sites[:, 2], d=3, device="cpu")
+    q = torch.as_tensor(np.random.default_rng(10).uniform(-0.45, 0.45, size=(50_000, 3)))
+    want = device_tri.interp(cpu, resp, q, method="cells", cells=ref)
+    got = device_tri.interp(cpu.to(cuda), resp.to(cuda), q.to(cuda), method="cells", cells=ours)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-9)

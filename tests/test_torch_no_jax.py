@@ -54,6 +54,16 @@ stats = dict()
 tc, _ = dd.triangulate(np.random.default_rng(0).uniform(-0.5, 0.5, (600, 2)), device="cpu",
                        chunk_threshold=100, seed_min=100, stats=stats)
 print(tc.n_tris, stats["seeded"])
+sites3 = np.random.default_rng(3).uniform(-0.5, 0.5, (40, 3))
+s3 = ScatteredInterp(sites3, sites3 @ np.array([1.0, -2.0, 0.5]), key=0, engine="cavity", device="cpu")
+q3 = np.array([[0.1, -0.2, 0.05], [0.0, 0.1, -0.1], [1e7, 1e7, 1e7]])
+v3 = [s3.eval(q3)]
+device_tri.DENSE_LOCATE_MAX_TRIS = 8  # the facade's 3D cell index
+s3._cells = None
+v3.append(s3.eval(q3))
+print(s3.engine, s3._cells is not None, s3._cells.k)
+for v in v3:
+    print(*(float(x) for x in v))
 """
 
 
@@ -103,3 +113,8 @@ def test_slice_runs_with_jax_blocked():
         np.testing.assert_allclose(v, dense, rtol=0, atol=1e-9)
     # The chunked route, seeded from Qhull.
     assert lines[7].split() == ["1201", "True"]
+    # The 3D cavity build, by brute force and through its 3D cell index.
+    assert lines[8].split() == ["cavity", "True", "24"]
+    dense3, cells3 = (np.array(line.split(), float) for line in lines[9:11])
+    assert dense3[-1] == 0.0 and np.all(np.isfinite(dense3))
+    np.testing.assert_allclose(cells3, dense3, rtol=0, atol=1e-9)

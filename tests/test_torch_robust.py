@@ -66,3 +66,38 @@ def test_signs_agree_with_exact_float64():
         torch.sign(robust.orient2d_ds(*t32[:3])).double(),
         torch.sign(robust.orient2d_ds(*t64[:3])),
     )
+
+
+@pytest.mark.parametrize("np_dtype,dtype", DTYPES)
+def test_orient3d_and_insphere_bit_equal(np_dtype, dtype):
+    P = _points(np.random.default_rng(1), 3000, 3, 5, np_dtype)
+    t = [torch.from_numpy(P[:, i].copy()) for i in range(5)]
+    j = [jnp.asarray(P[:, i]) for i in range(5)]
+    _same_bits(robust.orient3d_ds(*t[:4]), jrobust.orient3d_ds(*j[:4]))
+    _same_bits(robust.insphere_ds(*t), jrobust.insphere_ds(*j))
+    assert (robust.insphere_ds(*t) != 0).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("np_dtype,dtype", DTYPES)
+def test_nd_predicates_bit_equal(d, np_dtype, dtype):
+    P = _points(np.random.default_rng(d), 1000, d, d + 2, np_dtype)
+    verts, q = torch.from_numpy(P[:, : d + 1].copy()), torch.from_numpy(P[:, d + 1].copy())
+    _same_bits(robust.orientnd_ds(verts), jrobust.orientnd_ds(jnp.asarray(P[:, : d + 1])))
+    _same_bits(
+        robust.inspherend_ds(verts, q),
+        jrobust.inspherend_ds(jnp.asarray(P[:, : d + 1]), jnp.asarray(P[:, d + 1])),
+    )
+
+
+def test_3d_signs_agree_with_exact_float64():
+    # float32 inputs, exact in float64: the compensated float32 signs of
+    # orient3d and insphere equal the float64 ones away from thin ties.
+    P = _points(np.random.default_rng(6), 3000, 3, 5, np.float32)
+    t32 = [torch.from_numpy(P[:, i].copy()) for i in range(5)]
+    t64 = [x.double() for x in t32]
+    s32 = torch.sign(robust.insphere_ds(*t32))
+    s64 = torch.sign(robust.insphere_ds(*t64))
+    assert (s32 == s64).float().mean() > 0.999
+    o32 = torch.sign(robust.orient3d_ds(*t32[:4])).double()
+    assert (o32 == torch.sign(robust.orient3d_ds(*t64[:4]))).float().mean() > 0.999

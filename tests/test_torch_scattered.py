@@ -91,10 +91,14 @@ def test_strict_and_arguments(weather):
 
 
 @pytest.mark.parametrize("engine,d", [("cavity", 3), ("auto", 3)])
-def test_device_engines_come_later(engine, d):
+def test_device_engines_come_later(one_torch_thread, engine, d):
+    # The cavity engine has come: "auto" takes it for d = 3, and a linear
+    # function is reproduced at the sites.
     sites = np.random.default_rng(0).uniform(size=(10, d))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScatteredInterp(sites, np.zeros(10), engine=engine, device="cpu")
+    vals = sites @ np.array([1.0, -2.0, 0.5])
+    si = ScatteredInterp(sites, vals, engine=engine, device="cpu")
+    assert si.engine == "cavity" and si.tri.dim == 3
+    np.testing.assert_allclose(si.eval(sites).numpy(), vals, rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize(
@@ -304,9 +308,80 @@ def test_slice_at_scale_end_to_end_matches_jax(monkeypatch, index):
 
 
 def test_3d_past_the_limit_waits_for_the_3d_index(monkeypatch):
+    # The 3D index is here: past the limit the facade answers through it.
     rng = np.random.default_rng(4)
     si = ScatteredInterp(rng.uniform(-0.5, 0.5, size=(15, 3)), rng.normal(size=15),
                          engine="host", device="cpu")
+    Q = si._queries(rng.uniform(-0.2, 0.2, size=(5, 3)))
+    dense = device_tri.interp(si.tri, si.response, Q, method="dense")
     monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 8)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        si.eval(rng.uniform(-0.2, 0.2, size=(5, 3)))
+    np.testing.assert_allclose(si.eval(Q).numpy(), dense.numpy(), rtol=0, atol=1e-9)
+    assert si._cells is not None and si._cells.res == 8
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch intra-op thread for a 3D build: the test workers share the
+    machine's cores, and eight threads per worker oversubscribe them many
+    times over on its small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def facade_3d():
+    """tests/test_scattered_api.py::test_3d_auto_cavity's problem at 200
+    sites: the JAX facade (auto = cavity) and its insertion order."""
+    rng = np.random.default_rng(1)
+    sites = rng.uniform(-0.5, 0.5, size=(200, 3))
+    vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1]) + sites[:, 2]
+    ref = JaxInterp(sites, vals, key=0, engine="auto")
+    assert ref.engine == "cavity"
+    Q = np.concatenate([
+        rng.uniform(-0.5, 0.5, size=(800, 3)),
+        [[0.7, 0.0, 0.1], [-3.0, 0.2, 0.0], [1e7, 1e7, 1e7]],
+    ])
+    return sites, vals, ref, Q
+
+
+@pytest.mark.parametrize("engine", ["cavity", "auto"])
+def test_3d_cavity_facade_matches_jax(facade_3d, one_torch_thread, engine):
+    sites, vals, ref, Q = facade_3d
+    si = ScatteredInterp(sites, vals, key=np.asarray(ref.shuffle), engine=engine, device="cpu")
+    assert si.engine == "cavity" and si.tri.dtype == torch.float64
+    assert {tuple(sorted(r)) for r in si.tri.tri_verts.tolist()} == {
+        tuple(sorted(r)) for r in np.asarray(ref.tri.tri_verts).tolist()
+    }
+    v = _same_surfaces(si, ref, Q)
+    assert v[-1] == 0.0
+    _same_surfaces(si, ref, sites)  # at the vertices
+
+
+def test_3d_cavity_lazy_index_matches_jax(monkeypatch, facade_3d, one_torch_thread):
+    # Past a lowered brute-force limit both facades build their 3D cell
+    # index (on the host below DEVICE_INDEX_MIN_TETS) at the first query.
+    sites, vals, ref, Q = facade_3d
+    monkeypatch.setattr(jdt, "DENSE_LOCATE_MAX_TRIS", 8)
+    si = ScatteredInterp(sites, vals, key=np.asarray(ref.shuffle), engine="cavity", device="cpu")
+    monkeypatch.setattr(device_tri, "DENSE_LOCATE_MAX_TRIS", 8)
+    v = _same_surfaces(si, ref, Q)
+    assert si._cells is not None and si._cells.complete and si._cells.k == 24
+    dense = device_tri.interp(si.tri, si.response, si._queries(Q), method="dense")
+    np.testing.assert_allclose(v.numpy(), dense.numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("engine,d", [("device", 2), ("cavity", 3)])
+def test_accurate_dtype_is_float64(one_torch_thread, engine, d):
+    # dtype="accurate" (JAX scattered.py:60-70) is float64 on every device,
+    # with no change of engine: the result of dtype=torch.float64.
+    rng = np.random.default_rng(6)
+    sites = rng.uniform(-0.5, 0.5, size=(60, d))
+    vals = np.cos(3 * sites[:, 0]) + sites[:, 1]
+    a = ScatteredInterp(sites, vals, key=0, engine="auto", dtype="accurate", device="cpu")
+    b = ScatteredInterp(sites, vals, key=0, engine="auto", dtype=torch.float64, device="cpu")
+    assert a.engine == b.engine == engine
+    assert a.tri.dtype == a.response.dtype == torch.float64
+    Q = rng.uniform(-0.45, 0.45, size=(300, d))
+    np.testing.assert_array_equal(a.eval(Q).numpy(), b.eval(Q).numpy())
