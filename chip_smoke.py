@@ -32,7 +32,16 @@ phase at bench.py's sizes, each path counted from zero (neither kernel is
 on it): ``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
 (and a salted rebuild) and float64, held against scipy; the 3D cell index
 under 10 batches of 2,000,000 queries, against the walk and scipy; and
-100,000 sites, with a profiled build.  Everything is timed.
+100,000 sites, with a profiled build.  Last, the RBF phase at bench.py's
+sizes, each configuration counted from zero (neither kernel is on it), with
+TF32 checked off first: ``rbf_pu.fit`` of 100,000 sites in float32 and
+float64 (tps_100k), ``CompactRbf`` of 1,000,000 sites and a steady refit
+(wendland_1m), the float32 weights of 4,096 sites and their refinement
+against a host float64 solve (weights), ``LocalKriging`` of 100,000 sites
+under 10^6 predictions with variances (kriging_100k), and ``RbfInterp``'s
+direct thin-plate solve at 8,192 sites beside its pcg solver, then pcg at
+50,000 sites (rbf_direct); each with a profiled fit.  Everything is
+timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -1163,6 +1172,305 @@ def phase_3d(device="cuda"):
     return out
 
 
+# The RBF phase, at bench.py's sizes and seeds (bench_tps, bench_wendland,
+# bench_weights, bench_kriging), and the direct solver's limit.
+N_TPS = 100_000
+N_TPS_CHECK = 20_000
+N_WENDLAND = 1_000_000
+N_WENDLAND_CHECK = 10_000
+N_WEIGHTS = 4096
+N_KRIGING = 100_000
+KRIGING_QUERIES = 1_000_000
+KRIGING_CHUNK = 262_144
+N_KRIGING_CHECK = 20_000
+N_DIRECT = 8192            # the largest RbfInterp(solver="auto") solves directly
+N_DIRECT_CHECK = 20_000
+N_PCG_LARGE = 50_000
+# Two GMRES(60) restarts at 50,000 sites.  The default cg_maxiter of 500
+# (8 restarts, 496 matvecs) took 63 s on the card and ended at a relative
+# residual of 2.3e-2: the preconditioner stalls at this size.
+PCG_LARGE_MAXITER = 120
+TPS_SITE_RESID_MAX = 1e-4
+TPS_SITE_RESID_F64_MAX = 1e-8  # test_weight_accuracy.py:184
+WENDLAND_SITE_RESID_MAX = 1e-3
+WEIGHTS_REFINED_MAX = 1e-6
+WEIGHTS_F64_MAX = 1e-8
+KRIGING_RMSE_MAX = 0.05
+KRIGING_F32_VS_F64_MAX = 1e-3
+DIRECT_SITE_RESID_F64_MAX = 1e-8
+PCG_VS_DIRECT_MAX = 1e-6
+
+
+def _timed(fn, device):
+    """(fn(), seconds), the card synchronised before and after."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _rbf_config(name, device, body):
+    """Run ``body(rec)`` for one RBF configuration with both kernel
+    counters and the peak-memory counter set to 0 just before; the record
+    gets the launches, the peak memory and the seconds."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
+
+    locate.locate2d_cuda.launches = 0
+    candmath.edge_candidates_math_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = {}
+    body(rec)
+    rec.update(phase_s=time.perf_counter() - t0,
+               peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+               locate2d_launches=locate.locate2d_cuda.launches,
+               candmath2d_launches=candmath.edge_candidates_math_cuda.launches)
+    log(f"{name}: {json.dumps(rec)}")
+    return rec
+
+
+def _profiled(rec, label, fn):
+    """Device busy ms over the wall ms of ``fn()`` (torch.profiler) into
+    ``rec`` under ``label``."""
+    busy_ms, wall_ms, rows = profile_build(fn)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:5]
+    rec[label] = {"wall_s": wall_ms / 1e3, "device_busy_ms": busy_ms,
+                  "device_idle_share": 1.0 - busy_ms / wall_ms,
+                  "device_launches": sum(n for n, _ in rows.values()),
+                  "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top}}
+
+
+def tps_100k(rec, device="cuda"):
+    """bench.py's tps_100k: rbf_pu.fit of 100,000 sites in float32, its
+    site residual over 20,000 of them; the same fit in float64, and the
+    float32 - float64 difference at 20,000 off-site queries."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf_pu
+
+    rng = np.random.default_rng(3)
+    sites = rng.uniform(-1.0, 1.0, size=(N_TPS, 2))
+    values = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1]) + sites[:, 1]
+    stats = {}
+    m32, rec["fit_s"] = _timed(lambda: rbf_pu.fit(
+        sites, values, dtype=torch.float32, device=device, stats=stats), device)
+    rec.update(stats)
+    idx = rng.choice(N_TPS, N_TPS_CHECK, replace=False)
+    pred, rec["eval_sites_s"] = _timed(lambda: rbf_pu.evaluate(m32, sites[idx]), device)
+    rec["max_site_resid"] = float(np.abs(pred.double().cpu().numpy() - values[idx]).max())
+    m64, rec["fit_f64_s"] = _timed(lambda: rbf_pu.fit(
+        sites, values, dtype=torch.float64, device=device), device)
+    pred = rbf_pu.evaluate(m64, sites[idx]).cpu().numpy()
+    rec["max_site_resid_f64"] = float(np.abs(pred - values[idx]).max())
+    q = np.random.default_rng(5).uniform(-1.0, 1.0, size=(N_TPS_CHECK, 2))
+    a = rbf_pu.evaluate(m32, q).double().cpu().numpy()
+    b = rbf_pu.evaluate(m64, q).cpu().numpy()
+    rec["f32_vs_f64_max"] = float(np.abs(a - b).max())
+    require(np.all(np.isfinite(a)), "tps_100k: non-finite values")
+    require(rec["max_site_resid"] < TPS_SITE_RESID_MAX, f"tps_100k f32 site residual: {rec}")
+    require(rec["max_site_resid_f64"] < TPS_SITE_RESID_F64_MAX,
+            f"tps_100k f64 site residual: {rec}")
+    del m64
+    _profiled(rec, "profiled_fit_f32", lambda: rbf_pu.fit(
+        sites, values, dtype=torch.float32, device=device))
+
+
+def wendland_1m(rec, device="cuda"):
+    """bench.py's wendland_1m: CompactRbf of 1,000,000 sites in float32
+    (tol 1e-6, maxiter 400), a steady refit of the sites + 1e-7, and the
+    site residual over 10,000 of them."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf_compact
+
+    rng = np.random.default_rng(4)
+    sites = rng.uniform(-1.0, 1.0, size=(N_WENDLAND, 2))
+    values = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
+    kw = dict(tol=1e-6, maxiter=400, dtype=torch.float32, device=device)
+    # The first fit is the profiled one: its device is busy more than 90 %
+    # of the time, so the profiler's host cost does not show in its seconds.
+    fit = []
+    _profiled(rec, "profiled_fit", lambda: fit.append(
+        rbf_compact.CompactRbf(sites, values, **kw)))
+    m = fit[0]
+    rec["fit_s"] = rec["profiled_fit"]["wall_s"]
+    m2, rec["fit_steady_s"] = _timed(
+        lambda: rbf_compact.CompactRbf(sites + 1e-7, values, **kw), device)
+    rec.update(grid=list(m.grid.shape), cap=m.grid.cap, epsilon=m.epsilon,
+               pcg_iters=m.cg_iters, pcg_iters_steady=m2.cg_iters,
+               pcg_residual=m.cg_residual,
+               pcg_rel_residual=m.cg_residual / float(np.linalg.norm(values)))
+    del m2
+    idx = rng.choice(N_WENDLAND, N_WENDLAND_CHECK, replace=False)
+    pred, rec["eval_s"] = _timed(lambda: m.eval(sites[idx]), device)
+    pred = pred.double().cpu().numpy()
+    require(np.all(np.isfinite(pred)), "wendland_1m: non-finite values")
+    rec["max_site_resid"] = float(np.abs(pred - values[idx]).max())
+    require(rec["max_site_resid"] < WENDLAND_SITE_RESID_MAX, f"wendland_1m: {rec}")
+
+
+def weights_4k(rec, device="cuda"):
+    """bench.py's weights: CompactRbf of 4,096 sites in float32 against the
+    host float64 dense solve, before and after refine(iters=3); a float64
+    CompactRbf on the card as test_weight_accuracy.py runs it."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf_compact
+
+    rng = np.random.default_rng(21)
+    sites = rng.uniform(-0.5, 0.5, size=(N_WEIGHTS, 2))
+    values = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
+    eps = 1.0 / float(np.sqrt(40.0 / (np.pi * N_WEIGHTS)))
+    kw = dict(epsilon=eps, standardize=False, device=device)
+    fit32 = functools.partial(rbf_compact.CompactRbf, sites, values, tol=1e-7,
+                              maxiter=4000, dtype=torch.float32, **kw)
+    m, rec["fit_s"] = _timed(fit32, device)
+    lam32 = m.lam.double().cpu().numpy()
+    t0 = time.perf_counter()
+    diff = sites[:, None, :] - sites[None, :, :]
+    t = eps * np.sqrt((diff**2).sum(-1))
+    K = np.maximum(1.0 - t, 0.0) ** 4 * (4.0 * t + 1.0)
+    lam64 = np.linalg.solve(K, values)
+    rec["host_oracle_s"] = time.perf_counter() - t0
+    scale = np.max(np.abs(lam64))
+    rec["max_rel_weight_err_unrefined"] = float(np.max(np.abs(lam32 - lam64)) / scale)
+    _, rec["refine_s"] = _timed(lambda: m.refine(iters=3), device)
+    rec["max_rel_weight_err"] = float(np.max(np.abs(m.lam64 - lam64)) / scale)
+    rec["max_system_resid"] = float(np.max(np.abs(K @ m.lam64 - values)))
+    rec["refine_curve_max_resid"] = m.refine_history
+    rec["pcg_iters"] = m.cg_iters
+    m64, rec["fit_f64_s"] = _timed(lambda: rbf_compact.CompactRbf(
+        sites, values, tol=1e-14, maxiter=8000, dtype=torch.float64, **kw), device)
+    rec["pcg_iters_f64"] = m64.cg_iters
+    rec["max_rel_weight_err_f64"] = float(
+        np.max(np.abs(m64.lam.cpu().numpy() - lam64)) / scale)
+    require(rec["max_rel_weight_err"] <= WEIGHTS_REFINED_MAX, f"weights refined: {rec}")
+    require(rec["max_rel_weight_err_f64"] <= WEIGHTS_F64_MAX, f"weights f64: {rec}")
+    _profiled(rec, "profiled_fit", fit32)
+
+
+def kriging_100k(rec, device="cuda"):
+    """bench.py's kriging_100k: LocalKriging(k_neighbors=24) of 100,000
+    noisy sites in float32, a steady refit, 10^6 predictions with variances
+    (a warm call, then a timed one on the queries + 1e-7); RMSE, variances,
+    calibration, float32 against float64 with the same variogram, and
+    scipy's RBFInterpolator(neighbors=24) on the same host."""
+    import torch
+    from scipy.interpolate import RBFInterpolator
+
+    from gsl_scattered_interpolation_torch.models import kriging
+
+    rng = np.random.default_rng(23)
+    x = rng.uniform(0.0, 10.0, size=(N_KRIGING, 2))
+    noise_sd = 0.05
+    f_true = np.sin(x[:, 0] * 0.8) + 0.5 * np.cos(x[:, 1] * 1.1)
+    f = f_true + noise_sd * rng.standard_normal(N_KRIGING)
+    kw = dict(k_neighbors=24, dtype=torch.float32, device=device)
+    m, rec["fit_s"] = _timed(lambda: kriging.LocalKriging(x, f, **kw), device)
+    _, rec["fit_steady_s"] = _timed(lambda: kriging.LocalKriging(x + 1e-9, f, **kw), device)
+    rec["variogram"] = list(m.variogram)
+    rec["grid"] = list(m.grid.xs_pad.shape[:2])
+    rec["cap"] = m.grid.cap
+    q = rng.uniform(0.5, 9.5, size=(KRIGING_QUERIES, 2))
+    qt = torch.tensor(q, dtype=torch.float32, device=device)
+    _, rec["predict_warm_s"] = _timed(lambda: m.predict(qt, chunk=KRIGING_CHUNK), device)
+    qt = torch.tensor(q + 1e-7, dtype=torch.float32, device=device)
+    (mean, var), t_pred = _timed(lambda: m.predict(qt, chunk=KRIGING_CHUNK), device)
+    rec["predict_1m_s"] = t_pred
+    rec["queries_per_s"] = KRIGING_QUERIES / t_pred
+    ref = np.sin(q[:, 0] * 0.8) + 0.5 * np.cos(q[:, 1] * 1.1)
+    mean = mean.double().cpu().numpy()
+    var = var.double().cpu().numpy()
+    rec["rmse"] = float(np.sqrt(np.mean((mean - ref) ** 2)))
+    rec["mean_variance"] = float(np.mean(var))
+    # bench.py's calibration: squared errors against fresh noisy
+    # observations over the mean kriging variance.
+    y_new = ref + noise_sd * rng.standard_normal(KRIGING_QUERIES)
+    rec["calibration"] = float(np.mean((mean - y_new) ** 2) / max(np.mean(var), 1e-30))
+    m64 = kriging.LocalKriging(x, f, variogram=m.variogram, k_neighbors=24,
+                               dtype=torch.float64, device=device)
+    mean64, _ = m64.predict(q[:N_KRIGING_CHECK])
+    rec["f32_vs_f64_max"] = float(np.abs(mean[:N_KRIGING_CHECK]
+                                         - mean64.cpu().numpy()).max())
+    t0 = time.perf_counter()
+    cpu_m = RBFInterpolator(x, f, neighbors=24, kernel="linear")
+    rec["cpu_scipy_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_m(q[:N_KRIGING_CHECK])
+    rec["cpu_scipy_20k_s"] = time.perf_counter() - t0
+    rec["cpu_scipy_qps"] = N_KRIGING_CHECK / rec["cpu_scipy_20k_s"]
+    require(rec["rmse"] < KRIGING_RMSE_MAX, f"kriging_100k rmse: {rec}")
+    require(bool(np.all(np.isfinite(var)) and np.all(var >= 0)), "kriging_100k variances")
+    require(0.5 <= rec["calibration"] <= 2.0, f"kriging_100k calibration: {rec}")
+    require(rec["f32_vs_f64_max"] < KRIGING_F32_VS_F64_MAX, f"kriging_100k f32 vs f64: {rec}")
+    _profiled(rec, "profiled_fit", lambda: kriging.LocalKriging(x, f, **kw))
+    _profiled(rec, "profiled_predict_chunk",
+              lambda: m.predict(qt[:KRIGING_CHUNK], chunk=KRIGING_CHUNK))
+
+
+def rbf_direct(rec, device="cuda"):
+    """RbfInterp(kernel="thin_plate") of 8,192 sites, the largest that
+    solver="auto" solves directly: float64 (gated at the sites) and
+    float32; solver="pcg" on the same sites in float64 against the direct
+    values; then pcg at 50,000 sites in float64."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf
+
+    rng = np.random.default_rng(31)
+    sites = rng.uniform(-1.0, 1.0, size=(N_DIRECT, 2))
+    values = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1]) + sites[:, 1]
+    q = rng.uniform(-1.0, 1.0, size=(N_DIRECT_CHECK, 2))
+    fit = functools.partial(rbf.RbfInterp, sites, values, kernel="thin_plate", device=device)
+    d64, rec["fit_f64_s"] = _timed(lambda: fit(dtype=torch.float64), device)
+    require(d64.solver == "direct", f"auto picked {d64.solver}")
+    rec["max_site_resid_f64"] = float(d64.residual())
+    d32, rec["fit_f32_s"] = _timed(lambda: fit(dtype=torch.float32), device)
+    rec["max_site_resid_f32"] = float(d32.residual())
+    del d32
+    p64, rec["pcg_fit_s"] = _timed(lambda: fit(dtype=torch.float64, solver="pcg"), device)
+    rec["pcg_matvecs"] = p64.solve_info["iters"]
+    rec["pcg_rel_residual"] = p64.solve_info["rel_residual"]
+    a = p64.eval(q).cpu().numpy()
+    b = d64.eval(q).cpu().numpy()
+    rec["pcg_vs_direct_max"] = float(np.abs(a - b).max())
+    require(np.all(np.isfinite(a)), "rbf_direct: non-finite pcg values")
+    require(rec["max_site_resid_f64"] < DIRECT_SITE_RESID_F64_MAX, f"rbf_direct f64: {rec}")
+    require(rec["pcg_vs_direct_max"] < PCG_VS_DIRECT_MAX, f"rbf_direct pcg: {rec}")
+    del d64, p64
+    _profiled(rec, "profiled_pcg_fit", lambda: fit(dtype=torch.float64, solver="pcg"))
+    big = np.random.default_rng(32).uniform(-1.0, 1.0, size=(N_PCG_LARGE, 2))
+    vb = np.sin(3 * big[:, 0]) * np.cos(2 * big[:, 1]) + big[:, 1]
+    m, rec["pcg_50k_fit_s"] = _timed(lambda: rbf.RbfInterp(
+        big, vb, kernel="thin_plate", solver="pcg", cg_maxiter=PCG_LARGE_MAXITER,
+        dtype=torch.float64, device=device), device)
+    rec["pcg_50k_matvecs"] = m.solve_info["iters"]
+    rec["pcg_50k_rel_residual"] = m.solve_info["rel_residual"]
+
+
+RBF_CONFIGS = (("tps_100k", tps_100k), ("wendland_1m", wendland_1m),
+               ("weights", weights_4k), ("kriging_100k", kriging_100k),
+               ("rbf_direct", rbf_direct))
+
+
+def phase_rbf(device="cuda"):
+    """The RBF phase: each configuration of RBF_CONFIGS counted from zero
+    (neither kernel is on it), after checking that float32 matmuls run in
+    full float32.  Returns {name: record}."""
+    import torch
+
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    require(torch.get_float32_matmul_precision() == "highest",
+            f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+    out = {}
+    for name, body in RBF_CONFIGS:
+        out[name] = _rbf_config(name, device, functools.partial(body, device=device))
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1290,6 +1598,13 @@ def main() -> int:
     p3d = phase_3d()
     log(f"phase 3D: {time.perf_counter() - t0:.2f} s")
 
+    # 10. The RBF phase: bench.py's tps_100k, wendland_1m, weights and
+    # kriging_100k, and the direct and pcg thin-plate solvers, each counted
+    # from zero (neither kernel is on it).
+    t0 = time.perf_counter()
+    prbf = phase_rbf()
+    log(f"phase RBF: {time.perf_counter() - t0:.2f} s")
+
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
@@ -1306,7 +1621,8 @@ def main() -> int:
                                 for k, r in at_scale.items()},
                              **{f"build_1m_{k}": r["locate2d_launches"]
                                 for k, r in b1m.items()},
-                             **{k: r["locate2d_launches"] for k, r in p3d.items()}},
+                             **{k: r["locate2d_launches"] for k, r in p3d.items()},
+                             **{k: r["locate2d_launches"] for k, r in prbf.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
         "ms": loc["ms"],
         "device_ms": loc["device_ms"],
@@ -1328,7 +1644,8 @@ def main() -> int:
                                 for k, r in at_scale.items()},
                              **{f"build_1m_{k}": r["candmath2d_launches"]
                                 for k, r in b1m.items()},
-                             **{k: r["candmath2d_launches"] for k, r in p3d.items()}},
+                             **{k: r["candmath2d_launches"] for k, r in p3d.items()},
+                             **{k: r["candmath2d_launches"] for k, r in prbf.items()}},
         "max_abs_err": max(
             r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
@@ -1346,6 +1663,7 @@ def main() -> int:
     log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
     log(f"1M summary: {json.dumps(b1m)}")
     log(f"3D summary: {json.dumps(p3d)}")
+    log(f"RBF summary: {json.dumps(prbf)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

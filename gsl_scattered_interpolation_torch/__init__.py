@@ -5,8 +5,13 @@ NVIDIA H100, built slice by slice (ROADMAP.md).  It imports neither JAX nor
 the JAX package, which stays the reference its tests hold it against.
 
 Layout:
-  ops/       geometry and the wrappers of the hand-written kernels
-  models/    triangulation engines and the ScatteredInterp facade
+  ops/       geometry, Morton order and the wrappers of the hand-written
+             kernels
+  models/    triangulation engines and the ScatteredInterp facade; the RBF
+             and kriging family: rbf (RbfInterp), rbf_compact
+             (CompactRbf), rbf_pu (partition-of-unity thin-plate fit and
+             evaluate), kriging (OrdinaryKriging, LocalKriging); convert
+             (fitted JAX state into the port's)
   kernels/   CUDA sources (csrc/) and their nvcc build
   utils/     errors, machine constants, rng, fixtures
 

@@ -364,3 +364,53 @@ def test_cell_index_3d_on_card_equals_cpu(cuda, monkeypatch, packed):
     want = device_tri.interp(cpu, resp, q, method="cells", cells=ref)
     got = device_tri.interp(cpu.to(cuda), resp.to(cuda), q.to(cuda), method="cells", cells=ours)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-9)
+
+
+def _rbf_problem(n, seed):
+    sites = np.random.default_rng(seed).uniform(-1, 1, size=(n, 2))
+    return sites, np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1]) + sites[:, 1]
+
+
+def test_compact_rbf_on_card_equals_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import rbf_compact
+
+    sites, vals = _rbf_problem(3000, 41)
+    kw = dict(tol=1e-12, maxiter=3000, dtype=torch.float64)
+    ours = rbf_compact.CompactRbf(sites, vals, device=cuda, **kw)
+    ref = rbf_compact.CompactRbf(sites, vals, device="cpu", **kw)
+    torch.testing.assert_close(ours.lam.cpu(), ref.lam, rtol=0, atol=1e-8)
+    q = np.random.default_rng(42).uniform(-1, 1, size=(5000, 2))
+    torch.testing.assert_close(ours.eval(q).cpu(), ref.eval(q), rtol=0, atol=1e-9)
+    assert float(ours.residual()) < 1e-9
+
+
+def test_rbf_pu_on_card_equals_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import rbf_pu
+
+    sites, vals = _rbf_problem(5000, 43)
+    ours = rbf_pu.fit(sites, vals, dtype=torch.float64, device=cuda)
+    ref = rbf_pu.fit(sites, vals, dtype=torch.float64, device="cpu")
+    q = np.random.default_rng(44).uniform(-1, 1, size=(5000, 2))
+    torch.testing.assert_close(rbf_pu.evaluate(ours, q).cpu(), rbf_pu.evaluate(ref, q),
+                               rtol=0, atol=1e-8)
+    got = rbf_pu.evaluate(ours, sites).cpu().numpy()
+    np.testing.assert_allclose(got, vals, rtol=0, atol=1e-8)
+
+
+def test_local_kriging_on_card_equals_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import kriging
+
+    sites, vals = _rbf_problem(20_000, 45)
+    vg = kriging.Variogram("spherical", nugget=0.01, sill=1.0, range_=0.4)
+    ours = kriging.LocalKriging(sites, vals, variogram=vg, dtype=torch.float64, device=cuda)
+    ref = kriging.LocalKriging(sites, vals, variogram=vg, dtype=torch.float64, device="cpu")
+    q = np.random.default_rng(46).uniform(-1, 1, size=(20_000, 2))
+    m, v = ours.predict(q, chunk=8192)
+    m_c, v_c = ref.predict(q, chunk=8192)
+    torch.testing.assert_close(m.cpu(), m_c, rtol=0, atol=1e-8)
+    torch.testing.assert_close(v.cpu(), v_c, rtol=0, atol=1e-8)
+    # the auto-fitted variogram on the card is the CPU's
+    auto = kriging.LocalKriging(sites, vals, device=cuda)
+    auto_c = kriging.LocalKriging(sites, vals, device="cpu")
+    for a, b in zip(auto.variogram[1:], auto_c.variogram[1:]):
+        assert a == pytest.approx(b, rel=1e-9, abs=1e-12)

@@ -64,6 +64,15 @@ v3.append(s3.eval(q3))
 print(s3.engine, s3._cells is not None, s3._cells.k)
 for v in v3:
     print(*(float(x) for x in v))
+from gsl_scattered_interpolation_torch.models import kriging, rbf, rbf_compact, rbf_pu
+xr = np.random.default_rng(5).uniform(-1, 1, (120, 2))
+fr = np.sin(3 * xr[:, 0]) * np.cos(2 * xr[:, 1])
+fits = [rbf.RbfInterp(xr, fr, device="cpu").eval(xr),
+        rbf.RbfInterp(xr, fr, solver="pcg", cg_tol=1e-12, device="cpu").eval(xr),
+        rbf_compact.CompactRbf(xr, fr, tol=1e-12, device="cpu").eval(xr),
+        rbf_pu.evaluate(rbf_pu.fit(xr, fr, device="cpu"), xr),
+        kriging.LocalKriging(xr, fr, device="cpu").predict(xr)[0]]
+print(*(float((v.numpy() - fr).__abs__().max()) for v in fits))
 """
 
 
@@ -118,3 +127,7 @@ def test_slice_runs_with_jax_blocked():
     dense3, cells3 = (np.array(line.split(), float) for line in lines[9:11])
     assert dense3[-1] == 0.0 and np.all(np.isfinite(dense3))
     np.testing.assert_allclose(cells3, dense3, rtol=0, atol=1e-9)
+    # The RBF and kriging family interpolates its sites: RbfInterp direct
+    # and pcg, CompactRbf, the partition-of-unity fit, LocalKriging.
+    resid = np.array(lines[11].split(), float)
+    assert resid.shape == (5,) and np.all(resid < 1e-6), resid
