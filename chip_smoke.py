@@ -40,8 +40,19 @@ float64 (tps_100k), ``CompactRbf`` of 1,000,000 sites and a steady refit
 against a host float64 solve (weights), ``LocalKriging`` of 100,000 sites
 under 10^6 predictions with variances (kriging_100k), and ``RbfInterp``'s
 direct thin-plate solve at 8,192 sites beside its pcg solver, then pcg at
-50,000 sites (rbf_direct); each with a profiled fit.  Everything is
-timed.
+50,000 sites (rbf_direct); each with a profiled fit.  Last, the
+structured phase, each configuration counted from zero: the GSL family in
+float64 on the card against the compiled reference GSL's golden values;
+``Interp1D`` of every kind on 10^6 knots under 10^7 queries per
+operation and 10^6 integrals, against numpy and scipy (gsl1d_1m);
+``Interp2D`` bilinear and bicubic on a 2,048 x 2,048 grid under 10^7
+queries (gsl2d_2k); the locate kernel at T ~ 101,000 against
+``locate_dense`` on a Qhull import (bench.py's boundary check); the hull,
+Voronoi diagram and a save/load round trip of the 200k sites; ``thin`` of
+200,000 sites with the device builder in float32 and the Qhull builder in
+float64, each held by scipy; and the alpha-shape surface of a 61,000-point
+ball.  The tridiagonal kernel is held against its plain version on every
+system those inits gave it.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -1210,16 +1221,17 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def _rbf_config(name, device, body):
-    """Run ``body(rec)`` for one RBF configuration with both kernel
-    counters and the peak-memory counter set to 0 just before; the record
-    gets the launches, the peak memory and the seconds."""
+def _config(name, device, body):
+    """Run ``body(rec)`` for one configuration with every kernel counter
+    and the peak-memory counter set to 0 just before; the record gets the
+    launches, the peak memory and the seconds."""
     import torch
 
-    from gsl_scattered_interpolation_torch.ops import candmath, locate
+    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
 
     locate.locate2d_cuda.launches = 0
     candmath.edge_candidates_math_cuda.launches = 0
+    tridiag.thomas_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rec = {}
@@ -1227,7 +1239,8 @@ def _rbf_config(name, device, body):
     rec.update(phase_s=time.perf_counter() - t0,
                peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
                locate2d_launches=locate.locate2d_cuda.launches,
-               candmath2d_launches=candmath.edge_candidates_math_cuda.launches)
+               candmath2d_launches=candmath.edge_candidates_math_cuda.launches,
+               tridiag_launches=tridiag.thomas_cuda.launches)
     log(f"{name}: {json.dumps(rec)}")
     return rec
 
@@ -1467,8 +1480,640 @@ def phase_rbf(device="cuda"):
             f"float32 matmul precision {torch.get_float32_matmul_precision()}")
     out = {}
     for name, body in RBF_CONFIGS:
-        out[name] = _rbf_config(name, device, functools.partial(body, device=device))
+        out[name] = _config(name, device, functools.partial(body, device=device))
     return out
+
+
+# The structured phase: the GSL 1D/2D family (the tridiagonal kernel), the
+# locate kernel's boundary check at T ~ 101,000, and the geometry consumers.
+GOLDEN = "tests/golden/gsl_interp_golden.json"
+KINDS_1D = ("linear", "polynomial", "cspline", "cspline_periodic", "akima",
+            "akima_periodic", "steffen")
+N_1D = 1_000_000           # knots of gsl1d_1m
+Q_1D = 10_000_000          # queries per operation
+N_INTEG = 1_000_000        # intervals integrated
+N_POLY = 16                # the polynomial kind's knots
+N_STRUCT_CHECK = 100_000   # sampled queries held against scipy
+N_2D = 2048                # gsl2d_2k's grid is N_2D x N_2D
+Q_2D = 10_000_000
+N_BOUNDARY = 50_500        # bench.py:615: ~2n triangles, T just above 100k
+Q_BOUNDARY = 50_000
+N_GEOM = N_BUILD           # the 200k sites of BUILD_SEED
+Q_GEOM = 1_000_000
+N_THIN = 200_000
+THIN_TOL = 1e-3
+ALPHA_AXIS = 49            # nodes per axis of alpha_ball's jittered grid
+SPLINE_VS_SCIPY_MAX = 1e-9   # relative to max |y|
+KNOTS_MAX = 1e-12
+THIN_SLACK = {"float32": 1e-5, "float64": 1e-12}
+
+
+def tridiag_bound_ms(n: int, m: int, double: bool):
+    """(least ms, "bytes" or "operations") of one [n, m] Thomas solve:
+    diag and offdiag read once, rhs read and x written once;
+    tridiag.OPS_PER_ROW operations per row and column."""
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    fb = 8 if double else 4
+    bytes_ms = 1e3 * fb * ((2 * n - 1) + 2 * n * m) / HBM_BYTES_PER_S
+    rate = F64_OPS_PER_S if double else F32_OPS_PER_S
+    ops_ms = 1e3 * tridiag.OPS_PER_ROW * n * m / rate
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+class Recorder:
+    """Within ``with``, keep the arguments and result of every launch of
+    ``tridiag.thomas_cuda`` (the kernel's wrapper, which still counts
+    them), so the kernel can be held against its plain version on exactly
+    what the main path gave it."""
+
+    def __enter__(self):
+        from gsl_scattered_interpolation_torch.ops import tridiag
+
+        self.calls, self._orig = [], tridiag.thomas_cuda
+
+        def recording(diag, offdiag, rhs):
+            x = self._orig(diag, offdiag, rhs)
+            self.calls.append((diag, offdiag, rhs, x))
+            return x
+
+        # The wrapper counts on the module's name, so the count runs on
+        # ``recording`` meanwhile and goes back to the wrapper on exit.
+        recording.launches = self._orig.launches
+        tridiag.thomas_cuda = self._recording = recording
+        return self
+
+    def __exit__(self, *exc):
+        from gsl_scattered_interpolation_torch.ops import tridiag
+
+        self._orig.launches = self._recording.launches
+        tridiag.thomas_cuda = self._orig
+        return False
+
+
+PLAIN_SCRIPT = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from gsl_scattered_interpolation_torch.ops import tridiag
+a = np.load(sys.argv[1])
+t = __import__("time").perf_counter()
+x = tridiag.thomas_ref(*(torch.from_numpy(a[k]) for k in ("diag", "offdiag", "rhs")))
+np.save(sys.argv[2], x.numpy())
+print(__import__("time").perf_counter() - t)
+"""
+
+
+class PlainOnHost:
+    """The plain version of the tridiagonal kernel on a system too long for
+    it on the card (a Python loop of ~10 launches per row): one process
+    per system, on the host's cores, while the phase goes on.  ``check``
+    then holds the kernel's result against it bit for bit."""
+
+    def __init__(self, tmpdir):
+        self.tmpdir, self.jobs = tmpdir, []
+
+    def start(self, label, diag, offdiag, rhs, x):
+        import os
+
+        src = os.path.join(self.tmpdir, f"{label}_in.npz")
+        out = os.path.join(self.tmpdir, f"{label}_out.npy")
+        np.savez(src, diag=diag.cpu().numpy(), offdiag=offdiag.cpu().numpy(),
+                 rhs=rhs.cpu().numpy())
+        proc = subprocess.Popen([sys.executable, "-c", PLAIN_SCRIPT, src, out],
+                                stdout=subprocess.PIPE, text=True)
+        self.jobs.append((label, proc, out, x.cpu().numpy()))
+
+    def check(self, timeout: float = 300.0):
+        recs = []
+        for label, proc, out, x in self.jobs:
+            stdout, _ = proc.communicate(timeout=timeout)
+            require(proc.returncode == 0, f"plain tridiag {label} exited {proc.returncode}")
+            ref = np.load(out)
+            recs.append({"system": label, "n": int(x.shape[0]), "m": int(x.shape[1]),
+                         "mismatches": int((ref != x).sum()),
+                         "max_abs_err": float(np.abs(ref - x).max()),
+                         "plain_host_s": float(stdout.strip())})
+        return recs
+
+    def close(self):
+        for _, proc, _, _ in self.jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def tridiag_record(diag, offdiag, rhs, label, reps=5, plain=True):
+    """The tridiagonal kernel against its plain version on the card on one
+    system, with the times of both and the bound."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    got = tridiag.thomas_cuda(diag, offdiag, rhs)
+    n, m = rhs.shape
+    rec = {"system": label, "n": int(n), "m": int(m),
+           "dtype": str(rhs.dtype).split(".")[-1]}
+    if plain:
+        t0 = time.perf_counter()
+        ref = tridiag.thomas_ref(diag, offdiag, rhs)
+        sync(rhs.device.type)
+        rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["mismatches"] = int((got != ref).sum())
+        rec["max_abs_err"] = float((got - ref).abs().max())
+    rec["ms"] = time_ms(lambda: tridiag.thomas_cuda(diag, offdiag, rhs), reps)
+    rec["bound_ms"], rec["bound_by"] = tridiag_bound_ms(n, m, rhs.dtype == torch.float64)
+    log(f"tridiag kernel: {json.dumps(rec)}")
+    require(rec.get("mismatches", 0) == 0, f"tridiag disagrees with its plain version: {rec}")
+    return rec
+
+
+def gsl_golden(rec, device="cuda"):
+    """Every 1D kind and both 2D kinds in float64 on the card against the
+    compiled reference GSL (tests/golden/gsl_interp_golden.json) at the
+    JAX package's test tolerances (tests/test_gsl_golden.py)."""
+    import os
+
+    import torch
+
+    import gsl_scattered_interpolation_torch as gsi
+    from gsl_scattered_interpolation_torch.utils import testing
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN)
+    with open(path) as f:
+        g = json.load(f)
+    x, y, q = (np.asarray(g[k]) for k in ("x", "y", "q"))
+    kw = dict(device=device, dtype=torch.float64)
+    worst = {}
+    for kind in KINDS_1D:
+        it = gsi.interp(x, y, kind, **kw)
+        got = {"eval": it.eval(q), "deriv": it.eval_deriv(q), "deriv2": it.eval_deriv2(q),
+               "integ": it.eval_integ(x[0], q)}
+        tols = {"eval": 1e-10, "deriv": 1e-9, "deriv2": 1e-8,
+                "integ": 1e-6 if kind == "polynomial" else 1e-10}
+        for op, v in got.items():
+            v = v.cpu().numpy()
+            testing.test_abs(v, g[kind][op], tols[op], f"golden {kind} {op}")
+            worst[f"{kind}.{op}"] = float(np.nanmax(np.abs(v - np.asarray(g[kind][op]))))
+    gx = np.array([0.0, 0.7, 1.5, 2.6, 3.1])
+    gy = np.array([-1.0, -0.2, 0.9, 2.0])
+    i, j = np.arange(5)[:, None], np.arange(4)[None, :]
+    z = (i * 0.37 - j * 0.81) * (i + 0.5 * j) + 1.0
+    k = np.arange(25)
+    qx = gx[0] + (gx[-1] - gx[0]) * k / 24.0
+    qy = gy[0] + (gy[-1] - gy[0]) * ((k * 7) % 25) / 24.0
+    for kind in ("bilinear", "bicubic"):
+        it = gsi.interp2d(gx, gy, z, kind, **kw)
+        for op, fn, tol in (("eval", it.eval, 1e-10), ("deriv_x", it.eval_deriv_x, 1e-9),
+                            ("deriv_y", it.eval_deriv_y, 1e-9)):
+            v = fn(qx, qy).cpu().numpy()
+            testing.test_abs(v, g[kind][op], tol, f"golden {kind} {op}")
+            worst[f"{kind}.{op}"] = float(np.abs(v - np.asarray(g[kind][op])).max())
+    rec["max_abs_err"] = worst
+
+
+def newton_terms_scale(dd, x):
+    """The largest sum over k of |dd_k| prod_{j<k} |t - x_j| at the knots
+    t = x: the magnitude of the terms Horner's rule adds up there."""
+    diff = np.abs(x[:, None] - x[None, :])  # [t, j]
+    prods = np.concatenate([np.ones((x.size, 1)), np.cumprod(diff, axis=1)[:, :-1]], 1)
+    return float((np.abs(dd)[None, :] * prods).sum(1).max())
+
+
+def _qps(fn, n, device):
+    out, s = _timed(fn, device)
+    return out, {"s": s, "queries_per_s": n / s}
+
+
+def gsl1d_1m(rec, plain, device="cuda"):
+    """10^6 knots in float64: every kind's init (timed; the tridiagonal
+    kernel's device share from a profiled init), eval, eval_deriv and
+    eval_deriv2 of 10^7 queries and eval_integ of 10^6 intervals, held
+    against numpy and scipy on 10^5 sampled queries; the polynomial kind
+    at 16 knots."""
+    import torch
+    from scipy.interpolate import Akima1DInterpolator, CubicSpline
+
+    import gsl_scattered_interpolation_torch as gsi
+
+    rng = np.random.default_rng(41)
+    x = np.cumsum(rng.uniform(0.5, 1.5, N_1D))
+    y = rng.normal(size=N_1D)
+    yp = y.copy()
+    yp[-1] = yp[0]
+    f64 = dict(device=device, dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(44)
+    q = x[0] + (x[-1] - x[0]) * torch.rand(Q_1D, generator=gen, **f64)
+    qs = q[:N_STRUCT_CHECK].cpu().numpy()
+    knots = np.sort(rng.choice(N_1D, N_STRUCT_CHECK, replace=False))
+    ymax = float(np.abs(y).max())
+    for kind in KINDS_1D:
+        r = {}
+        if kind == "polynomial":
+            kx, ky = x[:N_POLY], y[:N_POLY]
+            qk = kx[0] + (kx[-1] - kx[0]) * torch.rand(Q_1D, generator=gen, **f64)
+        else:
+            kx, ky = x, (yp if kind.endswith("periodic") else y)
+            qk = q
+        lo = torch.minimum(qk[:N_INTEG], qk[N_INTEG:2 * N_INTEG])
+        hi = torch.maximum(qk[:N_INTEG], qk[N_INTEG:2 * N_INTEG])
+        with Recorder() as recd:
+            it, r["init_s"] = _timed(lambda: gsi.interp(kx, ky, kind, **f64), device)
+        r["tridiag_main_launches"] = len(recd.calls)
+        for op in ("eval", "eval_deriv", "eval_deriv2"):
+            _, r[op] = _qps(lambda: getattr(it, op)(qk), Q_1D, device)
+        ik, r["eval_integ"] = _qps(lambda: it.eval_integ(lo, hi), N_INTEG, device)
+        require(bool(torch.isfinite(ik).all()), f"gsl1d {kind}: non-finite integrals")
+        at = np.arange(kx.size) if kind == "polynomial" else knots
+        r["knots_max_err"] = float(np.abs(it.eval(kx[at]).cpu().numpy() - ky[at]).max())
+        scale = max(1.0, ymax)
+        if kind == "polynomial":
+            # Horner's sum of the Newton form cancels: at 16 knots its
+            # terms reach ~3e7 while y is O(1) (JAX's evaluation misses the
+            # knots by the same 7.8e-10), so the knots are held to the
+            # terms' magnitude.
+            scale = newton_terms_scale(it.dd.cpu().numpy(), kx)
+        require(r["knots_max_err"] <= KNOTS_MAX * scale, f"gsl1d {kind} knots: {r}")
+        if kind.startswith("cspline"):
+            require(len(recd.calls) == 1, f"{kind}: {len(recd.calls)} tridiagonal launches")
+            plain.start(f"gsl1d_{kind}", *recd.calls[0])
+            r["tridiag_kernel"] = tridiag_record(*recd.calls[0][:3], f"gsl1d_{kind}",
+                                                 reps=3, plain=False)
+            busy, wall, rows = profile_build(lambda: gsi.interp(kx, ky, kind, **f64))
+            k_ms = sum(ms for name, (_, ms) in rows.items() if "thomas" in name)
+            r["profiled_init"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                                  "tridiag_kernel_ms": k_ms,
+                                  "tridiag_share": k_ms / wall}
+            cs = CubicSpline(kx, ky, bc_type="natural" if kind == "cspline" else "periodic")
+            F = cs.antiderivative()
+            a_s = lo[:N_STRUCT_CHECK].cpu().numpy()
+            b_s = hi[:N_STRUCT_CHECK].cpu().numpy()
+            errs = {
+                "eval": np.abs(it.eval(qs).cpu().numpy() - cs(qs)).max(),
+                "deriv": np.abs(it.eval_deriv(qs).cpu().numpy() - cs(qs, 1)).max(),
+                "deriv2": np.abs(it.eval_deriv2(qs).cpu().numpy() - cs(qs, 2)).max(),
+                "integ": np.abs(it.eval_integ(a_s, b_s).cpu().numpy() - (F(b_s) - F(a_s))).max(),
+            }
+            r["vs_scipy_rel"] = {k: float(v) / ymax for k, v in errs.items()}
+        elif kind == "linear":
+            r["vs_numpy"] = float(np.abs(it.eval(qs).cpu().numpy() - np.interp(qs, x, y)).max())
+            require(r["vs_numpy"] <= 1e-12, f"gsl1d linear vs np.interp: {r}")
+        elif kind == "akima":
+            inner = qs[(qs > x[4]) & (qs < x[-5])]
+            ak = Akima1DInterpolator(x, y)
+            r["vs_scipy_rel"] = {"eval": float(np.abs(it.eval(inner).cpu().numpy()
+                                                      - ak(inner)).max()) / ymax}
+        elif kind == "steffen":
+            ym = np.cumsum(np.abs(y))  # monotone data on the same knots
+            mono = gsi.interp(x, ym, "steffen", **f64)
+            v = mono.eval(np.sort(qs)).cpu().numpy()
+            r["monotone_min_step"] = float(np.diff(v).min())
+            require(r["monotone_min_step"] >= 0.0, f"steffen not monotone: {r}")
+        for k, v in r.get("vs_scipy_rel", {}).items():
+            require(v <= SPLINE_VS_SCIPY_MAX, f"gsl1d {kind} {k} vs scipy: {r}")
+        rec[kind] = r
+        del it
+
+
+def gsl2d_2k(rec, device="cuda"):
+    """A 2,048 x 2,048 grid in float64: bilinear and bicubic init (three
+    launches of m = 2,048 for bicubic, each held against the plain
+    version), eval and all five derivatives of 10^7 queries; bilinear
+    against scipy, bicubic's nodes and its zx against scipy's natural
+    cubic splines."""
+    import torch
+    from scipy.interpolate import CubicSpline, RegularGridInterpolator
+
+    import gsl_scattered_interpolation_torch as gsi
+
+    rng = np.random.default_rng(43)
+    gx = np.cumsum(rng.uniform(0.5, 1.5, N_2D))
+    gy = np.cumsum(rng.uniform(0.5, 1.5, N_2D))
+    z = np.sin(gx / 40.0)[:, None] * np.cos(gy / 30.0)[None, :] + 0.1 * rng.normal(size=(N_2D, N_2D))
+    f64 = dict(device=device, dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(46)
+    xq = gx[0] + (gx[-1] - gx[0]) * torch.rand(Q_2D, generator=gen, **f64)
+    yq = gy[0] + (gy[-1] - gy[0]) * torch.rand(Q_2D, generator=gen, **f64)
+    qn = np.stack([xq[:N_STRUCT_CHECK].cpu().numpy(), yq[:N_STRUCT_CHECK].cpu().numpy()], -1)
+    zmax = float(np.abs(z).max())
+    recs = []
+    for kind in ("bilinear", "bicubic"):
+        r = {}
+        with Recorder() as recd:
+            it, r["init_s"] = _timed(lambda: gsi.interp2d(gx, gy, z, kind, **f64), device)
+        r["tridiag_main_launches"] = len(recd.calls)
+        for op in ("eval", "eval_deriv_x", "eval_deriv_y", "eval_deriv_xx",
+                   "eval_deriv_xy", "eval_deriv_yy"):
+            v, r[op] = _qps(lambda: getattr(it, op)(xq, yq), Q_2D, device)
+            require(bool(torch.isfinite(v).all()), f"gsl2d {kind} {op}: non-finite")
+            del v
+        if kind == "bilinear":
+            ref = RegularGridInterpolator((gx, gy), z, method="linear")(qn)
+            r["vs_scipy"] = float(np.abs(it.eval(qn[:, 0], qn[:, 1]).cpu().numpy() - ref).max())
+            require(r["vs_scipy"] <= 1e-12 * max(1.0, zmax), f"gsl2d bilinear vs scipy: {r}")
+        else:
+            require(len(recd.calls) == 3, f"bicubic: {len(recd.calls)} tridiagonal launches")
+            for label, call in zip(("zx", "zy", "zxy"), recd.calls):
+                recs.append(tridiag_record(*call[:3], f"gsl2d_{label}", reps=5))
+            busy, wall, rows = profile_build(lambda: gsi.interp2d(gx, gy, z, kind, **f64))
+            k_ms = sum(ms for name, (_, ms) in rows.items() if "thomas" in name)
+            r["profiled_init"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                                  "tridiag_kernel_ms": k_ms, "tridiag_share": k_ms / wall}
+            ii = rng.choice(N_2D, 64, replace=False)
+            jj = rng.choice(N_2D, 64, replace=False)
+            nodes = it.eval(gx[ii][:, None].repeat(64, 1).ravel(),
+                            np.tile(gy[jj], 64)).cpu().numpy().reshape(64, 64)
+            r["nodes_max_err"] = float(np.abs(nodes - z[np.ix_(ii, jj)]).max())
+            require(r["nodes_max_err"] <= KNOTS_MAX * max(1.0, zmax), f"gsl2d nodes: {r}")
+            cols = rng.choice(N_2D, 16, replace=False)
+            zx = it.zx[:, torch.as_tensor(cols, device=device)].cpu().numpy()
+            ref = np.stack([CubicSpline(gx, z[:, c], bc_type="natural")(gx, 1) for c in cols], -1)
+            r["zx_vs_scipy_rel"] = float(np.abs(zx - ref).max()) / zmax
+            require(r["zx_vs_scipy_rel"] <= SPLINE_VS_SCIPY_MAX, f"gsl2d zx vs scipy: {r}")
+            busy, wall, _ = profile_build(lambda: it.eval(xq[:BATCH], yq[:BATCH]))
+            r["profiled_eval_1m"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                                     "device_idle_share": 1.0 - busy / wall}
+        rec[kind] = r
+        del it
+    rec["tridiag_kernel"] = recs
+
+
+def boundary_100k(rec, device="cuda"):
+    """bench.py:599-647: the locate kernel at T ~ 101,000 against
+    locate_dense on a Qhull import of 50,500 sites cast to float32, 50,000
+    queries; index mismatch < 1 %, value difference < 1e-3."""
+    import torch
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.models import geometry_extras as gx
+    from gsl_scattered_interpolation_torch.ops import locate
+
+    rng = np.random.default_rng(42)
+    sites = rng.uniform(-0.5, 0.5, size=(N_BOUNDARY, 2))
+    t0 = time.perf_counter()
+    sd = Delaunay(sites)
+    rec["qhull_s"] = time.perf_counter() - t0
+    tri32, rec["import_s"] = _timed(
+        lambda: gx.from_scipy_delaunay(sd, sites, device=device).cast(torch.float32), device)
+    rec["n_tris"] = int(tri32.n_tris)
+    require(tri32.n_tris >= 100_000, f"T = {tri32.n_tris}")
+    q = torch.tensor(rng.uniform(-0.45, 0.45, size=(Q_BOUNDARY, 2)), dtype=torch.float32,
+                     device=device)
+    launches = locate.locate2d_cuda.launches
+    idx_p = locate.locate_dense_kernel(tri32, q)
+    rec["kernel_launches"] = locate.locate2d_cuda.launches - launches
+    idx_d = device_tri.locate_dense(tri32, q)[0]
+    vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
+    resp = torch.cat([torch.zeros(3, device=device),
+                      torch.tensor(vals, dtype=torch.float32, device=device)])
+    resp_tri = device_tri.vertex_responses(tri32, resp)
+    out_p = (resp_tri[idx_p.long()] * device_tri._weights(tri32, idx_p.long(), q)).sum(-1)
+    out_d = (resp_tri[idx_d.long()] * device_tri._weights(tri32, idx_d.long(), q)).sum(-1)
+    rec["mismatch_rate"] = float((idx_p.long() != idx_d.long()).float().mean())
+    rec["max_interp_diff"] = float((out_p - out_d).abs().max())
+    require(rec["mismatch_rate"] < LEAF_MISMATCH_MAX, f"boundary mismatch: {rec}")
+    require(rec["max_interp_diff"] < EVAL_VS_DENSE_MAX, f"boundary diff: {rec}")
+    kern = check_locate(tri32, q)
+    require(kern["mismatches"] == 0, f"locate2d disagrees with its plain version: {kern}")
+    rec["kernel"] = kern
+    busy, wall, _ = profile_build(lambda: locate.locate_dense_kernel(tri32, q))
+    rec["profiled_locate"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                              "device_idle_share": 1.0 - busy / wall}
+
+
+def geometry_200k(rec, device="cuda"):
+    """Hull, Voronoi and serialize on the 200k sites of BUILD_SEED: the
+    hull of their Qhull import equal to scipy's ConvexHull, and the hull of
+    their float64 device build a superset of it (the finite cage can cut
+    off thin triangles along the hull, which leaves a near-hull site
+    beside a cage triangle: the JAX package's rule, recorded); each Voronoi
+    vertex of the device build equidistant from its three sites within
+    1e-9 relative, or within its own rounding bound where that is larger;
+    a
+    save/load round trip whose eval of 10^6 queries is bit-equal."""
+    import os
+    import tempfile
+
+    import torch
+    from scipy.spatial import ConvexHull, Delaunay
+
+    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.models import geometry_extras as gx
+    from gsl_scattered_interpolation_torch.models import host_tree
+    from gsl_scattered_interpolation_torch.utils import serialize
+
+    sites = np.random.default_rng(BUILD_SEED).uniform(-0.5, 0.5, size=(N_GEOM, 2))
+    ref = np.sort(ConvexHull(sites).vertices)
+    imported = gx.from_scipy_delaunay(Delaunay(sites), sites, device=device)
+    hull, rec["hull_s"] = _timed(lambda: gx.convex_hull_points(imported), device)
+    rec["hull_points"] = int(hull.size)
+    require(np.array_equal(hull, ref), "the Qhull import's hull differs from scipy's")
+    (tri, shuffle), rec["build_s"] = _timed(lambda: dd.triangulate(
+        sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float64, device=device), device)
+    native = np.sort(shuffle[gx.convex_hull_points(tri)])
+    rec["native_hull_extra_points"] = int(np.setdiff1d(native, ref).size)
+    require(np.isin(ref, native).all(), "the device build's hull misses a hull point")
+    (centers, ridges), rec["voronoi_s"] = _timed(lambda: gx.voronoi(tri), device)
+    tv = tri.tri_verts.cpu().numpy()
+    data = (tv > 2).all(1)
+    rec["voronoi_vertices"], rec["voronoi_ridges"] = int(centers.shape[0]), int(ridges.shape[0])
+    require(centers.shape[0] == int(data.sum()), "Voronoi vertices != all-data triangles")
+    pts = tri.points_std.cpu().numpy()[tv[data]]
+    dist = np.linalg.norm(pts - centers[:, None, :], axis=-1)
+    rel = (dist.max(1) - dist.min(1)) / dist.max(1)
+    # The centre solves v_i - v_{i+1} . c = (|v_i|^2 - |v_{i+1}|^2) / 2 in
+    # absolute coordinates (JAX's formulation): the right side cancels,
+    # so a triangle's relative error is about eps kappa |v|^2 / R^2, 7e-8
+    # for the smallest (R ~ 8e-5) of 200k sites in the unit square.  Each
+    # centre is held to 1e-9 or 4 times that rounding bound if larger.
+    kappa = np.linalg.cond(pts[:, :2, :] - pts[:, 1:, :])
+    bound = np.maximum(1e-9, 4 * np.finfo(np.float64).eps * kappa
+                       * (pts ** 2).sum(-1).max(1) / dist.max(1) ** 2)
+    rec["equidistance_rel"] = float(rel.max())
+    rec["equidistance_over_1e-9"] = int((rel > 1e-9).sum())
+    rec["equidistance_vs_bound"] = float((rel / bound).max())
+    require(bool(np.all(rel <= bound)), f"Voronoi centres: {rec}")
+    busy, wall, _ = profile_build(lambda: gx.voronoi(tri))
+    rec["profiled_voronoi"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                               "device_idle_share": 1.0 - busy / wall}
+    resp = device_tri.response_for_build(shuffle, np.sin(6 * sites[:, 0]), device=device)
+    q = uniform_queries(Q_GEOM, seed=5, device=device)[0].double()
+    before = device_tri.interp(tri, resp, q)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tri.npz")
+        _, rec["save_s"] = _timed(lambda: serialize.save(path, tri, resp), device)
+        rec["file_MB"] = os.path.getsize(path) / 1e6
+        (tri2, resp2), rec["load_s"] = _timed(lambda: serialize.load(path, device=device), device)
+    after = device_tri.interp(tri2, resp2, q)
+    require(bool(torch.equal(before, after)), "eval differs after save/load")
+
+
+def _thin_contract(res, sites, vals, native: bool):
+    """The largest miss at a dropped site by scipy's LinearNDInterpolator
+    over the kept sites, as the kept triangulation defines the
+    interpolant: with the cage's vertices at value 0 for a native build
+    (its fade to zero beyond the hull), 0 beyond the hull for a Qhull
+    import."""
+    from scipy.interpolate import LinearNDInterpolator
+
+    drop = np.setdiff1d(np.arange(len(sites)), res.keep)
+    kept, kv = sites[res.keep], vals[res.keep]
+    if native:
+        cage = res.tri.points_raw[:3].double().cpu().numpy()
+        kept, kv = np.concatenate([cage, kept]), np.concatenate([np.zeros(3), kv])
+    est = LinearNDInterpolator(kept, kv, fill_value=0.0)(sites[drop])
+    return float(np.abs(est - vals[drop]).max())
+
+
+def thin_200k(rec, device="cuda"):
+    """thin() of 200,000 sites to tol 1e-3: the device builder in float32
+    (each round's build launches the candidate kernel; its evaluation
+    launches the locate kernel while T <= PALLAS_LOCATE_MAX_TRIS), then
+    the Qhull builder in float64; each held by scipy on the kept sites."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_tri, thinning
+    from gsl_scattered_interpolation_torch.ops import candmath, locate
+
+    rng = np.random.default_rng(45)
+    sites = rng.uniform(-1.0, 1.0, size=(N_THIN, 2))
+    vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
+    for builder, dtype in (("device", torch.float32), ("qhull", torch.float64)):
+        name = str(dtype).split(".")[-1]
+        r, stats = {}, []
+        l0 = locate.locate2d_cuda.launches
+        c0 = candmath.edge_candidates_math_cuda.launches
+        res, r["thin_s"] = _timed(lambda: thinning.thin(
+            sites, vals, THIN_TOL, builder=builder, dtype=dtype, device=device,
+            stats=stats), device)
+        r.update(rounds=res.rounds, kept=int(res.keep.size), max_error=res.max_error,
+                 locate2d_launches=locate.locate2d_cuda.launches - l0,
+                 candmath2d_launches=candmath.edge_candidates_math_cuda.launches - c0,
+                 per_round=stats)
+        require(res.max_error <= THIN_TOL, f"thin {builder}: {r}")
+        r["scipy_max_miss"] = _thin_contract(res, sites, vals, builder == "device")
+        require(r["scipy_max_miss"] <= THIN_TOL + THIN_SLACK[name], f"thin {builder} contract: {r}")
+        if builder == "device":
+            require(r["candmath2d_launches"] > 0 and r["locate2d_launches"] > 0,
+                    f"thin device: a kernel never launched: {r}")
+        drop = np.setdiff1d(np.arange(N_THIN), res.keep)
+        q = torch.tensor(sites[drop], dtype=dtype, device=device)
+        resp = device_tri.response_for_build(res.shuffle, vals[res.keep], device=device).to(dtype)
+        busy, wall, _ = profile_build(lambda: device_tri.interp(res.tri, resp, q))
+        r["profiled_last_interp"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                                     "device_idle_share": 1.0 - busy / wall}
+        rec[f"{builder}_{name}"] = r
+
+
+def alpha_ball_61k(rec, device="cuda"):
+    """reconstruct_surface of a solid ball on a jittered grid of 49 nodes
+    per axis (tests/test_surface.py:27-38 at 61,600 points): watertight,
+    Euler characteristic 2, boundary on the sphere."""
+    from scipy.spatial import Delaunay
+
+    from gsl_scattered_interpolation_torch.models import geometry_extras as gx
+    from gsl_scattered_interpolation_torch.models import surface
+
+    rng = np.random.default_rng(0)
+    g = np.linspace(-1, 1, ALPHA_AXIS)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[np.linalg.norm(pts, axis=1) <= 1.0]
+    h = g[1] - g[0]
+    pts = pts + rng.uniform(-0.05 * h, 0.05 * h, pts.shape)
+    rec["points"] = int(pts.shape[0])
+    (faces, alpha), rec["reconstruct_s"] = _timed(
+        lambda: surface.reconstruct_surface(pts, alpha=1.2 * h, device=device), device)
+    t0 = time.perf_counter()
+    sd = Delaunay(pts)
+    rec["qhull_s"] = time.perf_counter() - t0
+    tri, rec["import_s"] = _timed(lambda: gx.from_scipy_delaunay(sd, pts, device=device), device)
+    shape, rec["alpha_shape_s"] = _timed(lambda: surface.alpha_shape(tri, alpha), device)
+    busy, wall, _ = profile_build(lambda: surface.alpha_shape(tri, alpha))
+    rec["profiled_alpha_shape"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
+                                   "device_idle_share": 1.0 - busy / wall}
+    require(np.array_equal(shape.faces, faces), "alpha_shape differs from reconstruct_surface")
+    rec["tets"], rec["faces"] = int(tri.n_tris), int(faces.shape[0])
+    require(surface.edge_manifold_check(faces), "alpha ball surface is not 2-manifold")
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [0, 2]]], 0)
+    V, E, F = np.unique(faces).size, np.unique(np.sort(e, 1), axis=0).shape[0], faces.shape[0]
+    rec["euler"] = int(V - E + F)
+    require(rec["euler"] == 2, f"Euler characteristic {rec['euler']}")
+    rad = np.linalg.norm(pts[np.unique(faces)], axis=1)
+    rec["boundary_radius_min"] = float(rad.min())
+    require(rec["boundary_radius_min"] > 1.0 - 2.5 * h, f"alpha ball radius: {rec}")
+
+
+def phase_structured(device="cuda"):
+    """The structured phase: each configuration counted from zero.  The
+    tridiagonal kernel is held against its plain version on every system
+    the main path gave it: on the card for the grids, in processes on the
+    host for the 10^6-row splines.  Returns {name: record}."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = PlainOnHost(tmp)
+        try:
+            out["gsl_golden"] = _config("gsl_golden", device,
+                                        functools.partial(gsl_golden, device=device))
+            out["gsl1d_1m"] = _config("gsl1d_1m", device,
+                                      functools.partial(gsl1d_1m, plain=plain, device=device))
+            for name, body in (("gsl2d_2k", gsl2d_2k), ("boundary_100k", boundary_100k),
+                               ("geometry_200k", geometry_200k), ("thin_200k", thin_200k),
+                               ("alpha_ball_61k", alpha_ball_61k)):
+                out[name] = _config(name, device, functools.partial(body, device=device))
+            t0 = time.perf_counter()
+            out["tridiag_plain_on_host"] = plain.check()
+            log(f"tridiag plain on host: {json.dumps(out['tridiag_plain_on_host'])} "
+                f"(waited {time.perf_counter() - t0:.2f} s)")
+        finally:
+            plain.close()
+    for r in out["tridiag_plain_on_host"]:
+        require(r["mismatches"] == 0, f"tridiag disagrees with its plain version: {r}")
+    require(out["gsl1d_1m"]["cspline"]["tridiag_main_launches"] == 1
+            and out["gsl1d_1m"]["cspline_periodic"]["tridiag_main_launches"] == 1,
+            "a gsl1d spline init did not launch tridiag once")
+    require(out["gsl2d_2k"]["bicubic"]["tridiag_main_launches"] == 3,
+            "the bicubic init did not launch tridiag three times")
+    require(out["boundary_100k"]["kernel_launches"] == 1, "boundary: locate2d launches")
+    return out
+
+
+
+def tridiag_summary(pcfg, host_checks):
+    """The tridiagonal kernel's record of the kernels line: timed at the
+    first bicubic derivative grid (n = 2,046, m = 2,048, float64), with the
+    10^6-row spline systems beside it."""
+    grids = pcfg["gsl2d_2k"]["tridiag_kernel"]
+    first = grids[0]
+    one_d = {k: pcfg["gsl1d_1m"][k]["tridiag_kernel"] for k in ("cspline", "cspline_periodic")}
+    return {
+        "name": "tridiag",
+        "route": "cuda",
+        "source": "gsl_scattered_interpolation_torch/kernels/csrc/tridiag.cu",
+        # Not a Pallas kernel: JAX's lax.scan Thomas sweeps.
+        "replaces": "gsl_scattered_interpolation_tpu/ops/tridiag.py:16",
+        # The inits' launches: one per cspline and cspline_periodic init,
+        # three per bicubic init (not those of the checks and timings).
+        "launches": sum(r["tridiag_main_launches"] for name in ("gsl1d_1m", "gsl2d_2k")
+                        for r in pcfg[name].values()
+                        if isinstance(r, dict) and "tridiag_main_launches" in r),
+        "launches_by_path": {k: r["tridiag_launches"] for k, r in pcfg.items()},
+        "max_abs_err": max([r["max_abs_err"] for r in (*grids, *host_checks)]),
+        "mismatches": sum(r["mismatches"] for r in (*grids, *host_checks)),
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,  # no PyTorch call solves a banded system
+        "shape": f"n={first['n']} m={first['m']} {first['dtype']}",
+        "grids": grids,
+        "splines_1m": one_d,
+        "splines_1m_plain_on_host": host_checks,
+    }
 
 
 def main() -> int:
@@ -1479,7 +2124,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     from gsl_scattered_interpolation_torch.kernels import build
-    from gsl_scattered_interpolation_torch.ops import candmath, locate
+    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
 
     # 1. Device.
     t0 = time.perf_counter()
@@ -1497,7 +2142,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name).strip(), time.perf_counter() - t0
 
-    names = (locate.KERNEL, candmath.KERNEL)
+    names = (locate.KERNEL, candmath.KERNEL, tridiag.KERNEL)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(timed_build, names)))
     for name, (out, secs) in built.items():
@@ -1605,6 +2250,15 @@ def main() -> int:
     prbf = phase_rbf()
     log(f"phase RBF: {time.perf_counter() - t0:.2f} s")
 
+    # 11. The structured phase: the GSL 1D and 2D family through the
+    # tridiagonal kernel, the locate kernel's boundary check at T ~ 101,000,
+    # and the geometry consumers (hull, Voronoi, serialize, thinning, alpha
+    # shapes), each counted from zero.
+    t0 = time.perf_counter()
+    pst = phase_structured()
+    log(f"phase structured: {time.perf_counter() - t0:.2f} s")
+    pcfg = {k: r for k, r in pst.items() if isinstance(r, dict)}
+
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     c32 = cand_recs[torch.float32][-1]
@@ -1622,8 +2276,10 @@ def main() -> int:
                              **{f"build_1m_{k}": r["locate2d_launches"]
                                 for k, r in b1m.items()},
                              **{k: r["locate2d_launches"] for k, r in p3d.items()},
-                             **{k: r["locate2d_launches"] for k, r in prbf.items()}},
-        "max_abs_err": max(r["max_abs_err"] for r in locate_recs),
+                             **{k: r["locate2d_launches"] for k, r in prbf.items()},
+                             **{k: r["locate2d_launches"] for k, r in pcfg.items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           (*locate_recs, pcfg["boundary_100k"]["kernel"])),
         "ms": loc["ms"],
         "device_ms": loc["device_ms"],
         "plain_ms": loc["plain_ms"],
@@ -1631,6 +2287,11 @@ def main() -> int:
         "bound_by": loc["bound_by"],
         "library_ms": None,  # no one PyTorch call computes this function
         "shape": f"B={loc['B']} T={loc['T']}",
+        "boundary_100k": {k: pcfg["boundary_100k"]["kernel"][k]
+                          for k in ("B", "T", "mismatches", *TIMES)}
+        | {"launches": pcfg["boundary_100k"]["kernel_launches"],
+           "mismatch_rate_vs_dense": pcfg["boundary_100k"]["mismatch_rate"],
+           "max_interp_diff_vs_dense": pcfg["boundary_100k"]["max_interp_diff"]},
     }, {
         "name": candmath.KERNEL,
         "route": "cuda",
@@ -1645,7 +2306,8 @@ def main() -> int:
                              **{f"build_1m_{k}": r["candmath2d_launches"]
                                 for k, r in b1m.items()},
                              **{k: r["candmath2d_launches"] for k, r in p3d.items()},
-                             **{k: r["candmath2d_launches"] for k, r in prbf.items()}},
+                             **{k: r["candmath2d_launches"] for k, r in prbf.items()},
+                             **{k: r["candmath2d_launches"] for k, r in pcfg.items()}},
         "max_abs_err": max(
             r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
@@ -1659,11 +2321,12 @@ def main() -> int:
         "float64": {k: c64[k] for k in TIMES},
         "compact_rows_float32": [{"rows": r["rows"], **{k: r[k] for k in TIMES}}
                                  for r in compact_recs],
-    }]
+    }, tridiag_summary(pcfg, pst["tridiag_plain_on_host"])]
     log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
     log(f"1M summary: {json.dumps(b1m)}")
     log(f"3D summary: {json.dumps(p3d)}")
     log(f"RBF summary: {json.dumps(prbf)}")
+    log(f"structured summary: {json.dumps(pst)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

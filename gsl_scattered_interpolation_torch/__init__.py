@@ -10,14 +10,22 @@ Layout:
   models/    triangulation engines and the ScatteredInterp facade; the RBF
              and kriging family: rbf (RbfInterp), rbf_compact
              (CompactRbf), rbf_pu (partition-of-unity thin-plate fit and
-             evaluate), kriging (OrdinaryKriging, LocalKriging); convert
-             (fitted JAX state into the port's)
+             evaluate), kriging (OrdinaryKriging, LocalKriging); the GSL
+             structured family: interp1d (Interp1D, Spline1D), interp2d
+             (Interp2D, Spline2D); the geometry consumers: geometry_extras
+             (hull, Voronoi, Qhull import), surface (alpha shapes),
+             thinning; convert (fitted JAX state into the port's)
   kernels/   CUDA sources (csrc/) and their nvcc build
-  utils/     errors, machine constants, rng, fixtures
+  utils/     errors, machine constants, rng, fixtures, integrity checks,
+             serialize (.npz), config (environment), profiling, testing
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+The JAX package's ``setup_x64`` has no counterpart: each entry point takes
+``dtype=``.
 """
 
+from .models.interp1d import Interp1D, Spline1D, interp, spline  # noqa: F401
+from .models.interp2d import Interp2D, Spline2D, interp2d, spline2d  # noqa: F401
 from .models.scattered import ScatteredInterp  # noqa: F401
 
 __version__ = "0.1.0"

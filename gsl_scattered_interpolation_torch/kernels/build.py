@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import errors
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -fmad=false: no multiply-add contraction, so a kernel's float32 arithmetic
@@ -77,6 +79,20 @@ def build(name: str) -> str:
     finally:
         tmp.unlink(missing_ok=True)
     return proc.stdout + proc.stderr
+
+
+def check_arg(name, t, shape, dtype, device) -> None:
+    """Raise InvalidArgumentError unless tensor ``t`` is contiguous, of
+    ``dtype`` and ``shape``, on ``device``: what a kernel's wrapper checks
+    before it passes the pointer on."""
+    if t.dtype != dtype or t.device != device or not t.is_contiguous():
+        raise errors.InvalidArgumentError(
+            f"{name} must be a contiguous {dtype} tensor on {device}"
+        )
+    if tuple(t.shape) != shape:
+        raise errors.InvalidArgumentError(
+            f"{name} has shape {tuple(t.shape)}, expected {shape}"
+        )
 
 
 @functools.cache

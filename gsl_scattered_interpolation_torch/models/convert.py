@@ -13,6 +13,10 @@ For the RBF and kriging family, the fitted models: :func:`cell_grid_from_jax`
 :func:`compact_rbf_from_jax` (an ``RbfInterp``'s or ``CompactRbf``'s
 weights).  The port then evaluates a JAX fit, so a test can hold ``eval``
 against JAX's apart from the fit.
+
+For the GSL structured family: :func:`interp1d_from_jax` (an ``Interp1D``
+from its knots and ``coef`` or ``dd``) and :func:`interp2d_from_jax` (an
+``Interp2D`` from its grid and derivative grids).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import kriging, rbf, rbf_compact, rbf_pu
+from . import interp1d, interp2d, kriging, rbf, rbf_compact, rbf_pu
 from .device_cavity import CavityState
 from .device_delaunay import BuildState
 from .device_tri import DeviceTriangulation
@@ -174,4 +178,37 @@ def compact_rbf_from_jax(fields: dict, device="cuda") -> rbf_compact.CompactRbf:
     m.lam_pad = _tensor(fields["lam_pad"], device, dtype)
     m.lam64 = None
     m.refine_history = []
+    return m
+
+
+def interp1d_from_jax(fields: dict, device="cuda") -> interp1d.Interp1D:
+    """A port Interp1D on ``device`` holding a JAX ``Interp1D``'s state.
+
+    ``fields``: ``kind``, ``x``, ``y`` and ``coef`` (or, for the polynomial
+    kind, ``dd``), arrays as numpy.  The port's dtype is ``x``'s.
+    """
+    kind = str(fields["kind"])
+    m = object.__new__(interp1d.Interp1D)
+    m.kind = kind
+    m.type = interp1d.TYPES[kind]
+    m.x = _tensor(fields["x"], device)
+    m.y = _tensor(fields["y"], device, m.x.dtype)
+    name = "dd" if kind == "polynomial" else "coef"
+    setattr(m, name, _tensor(fields[name], device, m.x.dtype))
+    return m
+
+
+def interp2d_from_jax(fields: dict, device="cuda") -> interp2d.Interp2D:
+    """A port Interp2D on ``device`` holding a JAX ``Interp2D``'s state.
+
+    ``fields``: ``kind``, ``x``, ``y``, ``z`` and, for bicubic, ``zx``,
+    ``zy`` and ``zxy``, arrays as numpy.  The port's dtype is ``x``'s.
+    """
+    kind = str(fields["kind"])
+    m = object.__new__(interp2d.Interp2D)
+    m.kind = kind
+    m.x = _tensor(fields["x"], device)
+    names = ("y", "z") + (("zx", "zy", "zxy") if kind == "bicubic" else ())
+    for name in names:
+        setattr(m, name, _tensor(fields[name], device, m.x.dtype))
     return m

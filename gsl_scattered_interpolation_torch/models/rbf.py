@@ -195,8 +195,10 @@ def _solve_saddle(K, rhs):
         raise errors.SingularError(
             "singular RBF system (duplicate sites?)"
         ) from e
-    if not bool(torch.isfinite(sol).all()):
-        raise errors.SingularError("singular RBF system (duplicate sites?)")
+    errors.strict_check(
+        torch.isfinite(sol), errors.SingularError,
+        "singular RBF system (duplicate sites?)",
+    )
     return sol
 
 

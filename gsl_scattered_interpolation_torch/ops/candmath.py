@@ -94,17 +94,6 @@ def edge_candidates_math_ref(
     return valid3 & convex3 & (want | degen_t | degen_u)
 
 
-def _check(name, t, shape, dtype, device):
-    if t.dtype != dtype or t.device != device or not t.is_contiguous():
-        raise errors.InvalidArgumentError(
-            f"{name} must be a contiguous {dtype} tensor on {device}"
-        )
-    if tuple(t.shape) != shape:
-        raise errors.InvalidArgumentError(
-            f"{name} has shape {tuple(t.shape)}, expected {shape}"
-        )
-
-
 def edge_candidates_math_cuda(apex3, fq3, tv, far3, valid3, cok, degen_u):
     """Launch the kernel: ``cand_ok [R, 3]`` bool on the card.
 
@@ -122,13 +111,13 @@ def edge_candidates_math_cuda(apex3, fq3, tv, far3, valid3, cok, degen_u):
     dtype = apex3.dtype
     if dtype not in (torch.float32, torch.float64):
         raise errors.InvalidArgumentError(f"unsupported dtype {dtype}")
-    _check("apex3", apex3, (R, 3, 2), dtype, dev)
-    _check("fq3", fq3, (R, 3, 2), dtype, dev)
-    _check("tv", tv, (R, 3), torch.int32, dev)
-    _check("far3", far3, (R, 3), torch.int32, dev)
-    _check("valid3", valid3, (R, 3), torch.bool, dev)
-    _check("cok", cok, (R,), torch.bool, dev)
-    _check("degen_u", degen_u, (R, 3), torch.bool, dev)
+    build.check_arg("apex3", apex3, (R, 3, 2), dtype, dev)
+    build.check_arg("fq3", fq3, (R, 3, 2), dtype, dev)
+    build.check_arg("tv", tv, (R, 3), torch.int32, dev)
+    build.check_arg("far3", far3, (R, 3), torch.int32, dev)
+    build.check_arg("valid3", valid3, (R, 3), torch.bool, dev)
+    build.check_arg("cok", cok, (R,), torch.bool, dev)
+    build.check_arg("degen_u", degen_u, (R, 3), torch.bool, dev)
     if 6 * R >= 2**31:  # int32 offsets in the kernel
         raise errors.InvalidArgumentError(f"unsupported size R={R}")
     out = torch.empty((R, 3), dtype=torch.uint8, device=dev)

@@ -4,7 +4,8 @@ Coordinates are standardized as ``scale * (x - shift)`` exactly as the
 reference does (``linear_simplex.c:574-582, 627-633``).  Tensor functions
 broadcast over leading axes; the cage construction is host numpy, a tiny
 init-time computation.  The JAX package's ``take_rows`` (a flat-gather
-workaround for the TPU compiler) is plain indexing here.
+workaround for the TPU compiler) has no counterpart: it is plain indexing
+here.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ from ..utils import machine
 def standardize(x, shift, scale):
     """Map raw coordinates to standardized space: scale * (x - shift)."""
     return scale * (x - shift)
+
+
+def unstandardize(x, shift, scale):
+    """Inverse of :func:`standardize` (used on cage vertices, :255-260)."""
+    return x / scale + shift
 
 
 def shift_scale_from_bounds(lo, hi):
@@ -148,7 +154,65 @@ def _solve(M, rhs):
 
 
 # ---------------------------------------------------------------------------
-# Circumsphere (linear_simplex.c:539-605)
+# Barycentric coordinates (linear_simplex.c:607-651)
+# ---------------------------------------------------------------------------
+
+
+def bary_coords(verts_std, q_std):
+    """(coords [..., d], ok [...]) of queries [..., d] in simplexes
+    [..., d+1, d], standardized.
+
+    The reference's convention (linear_simplex.c:614-649): the edge matrix
+    has columns ``v_i - v_d`` and the right side is ``q - v_d``, so coords
+    are the weights of vertices 0..d-1 and vertex d's is ``1 - sum``.  ok
+    is False where the simplex is singular (coords 0), which the reference
+    treats as "query not inside" (:641-642, 661-663).
+    """
+    d = verts_std.shape[-1]
+    origin = verts_std[..., d, :]
+    M = torch.swapaxes(verts_std[..., :d, :] - origin[..., None, :], -1, -2)
+    return _solve(M, q_std - origin)
+
+
+def bary_coords_scaled(verts_raw, q_raw, scale):
+    """:func:`bary_coords` from raw coordinates: edge vectors are
+    ``scale * (a_raw - b_raw)``, subtracted then scaled, which keeps
+    precision when the vertices include the huge cage points."""
+    d = verts_raw.shape[-1]
+    origin = verts_raw[..., d, :]
+    M = torch.swapaxes((verts_raw[..., :d, :] - origin[..., None, :]) * scale, -1, -2)
+    return _solve(M, (q_raw - origin) * scale)
+
+
+def contains(coords, ok=None):
+    """Exact containment on barycentric coords (linear_simplex.c:653-676):
+    every coordinate and their sum in [0, 1], with no slack."""
+    tot = torch.sum(coords, dim=-1)
+    inside = (
+        torch.all((coords >= 0) & (coords <= 1), dim=-1) & (tot >= 0) & (tot <= 1)
+    )
+    if ok is not None:
+        inside = inside & ok
+    return inside
+
+
+def worst_violation(coords, ok=None):
+    """Largest amount by which a coordinate or their sum leaves [0, 1]
+    (the fallback metric of ``_find_leaf``, linear_simplex.c:375-390);
+    +inf where ``ok`` is False, so a singular simplex is never chosen."""
+    tot = torch.sum(coords, dim=-1)
+    per = torch.clamp(torch.maximum(-coords, coords - 1.0), min=0.0)
+    v = torch.maximum(
+        torch.amax(per, dim=-1),
+        torch.clamp(torch.maximum(-tot, tot - 1.0), min=0.0),
+    )
+    if ok is not None:
+        v = torch.where(ok, v, torch.inf)
+    return v
+
+
+# ---------------------------------------------------------------------------
+# Circumsphere (linear_simplex.c:539-605) and in-sphere test (:495-537)
 # ---------------------------------------------------------------------------
 
 
@@ -168,3 +232,15 @@ def circumsphere(verts_std):
     diff = verts_std[..., 0, :] - center
     r2 = torch.sum(diff * diff, dim=-1)
     return center, r2, ok
+
+
+def in_sphere(center, r2, ok, q_std, dtype=None):
+    """Strict in-circumsphere test with the reference's tie-break:
+    ``dist2 < r2 (1 - 10 eps)`` (linear_simplex.c:535-536); a degenerate
+    simplex (ok False) contains every point (:517-521)."""
+    if dtype is None:
+        dtype = q_std.dtype
+    diff = q_std - center
+    dist2 = torch.sum(diff * diff, dim=-1)
+    inside = dist2 < r2 * (1.0 - 10.0 * machine.eps(dtype))
+    return torch.where(ok, inside, True)

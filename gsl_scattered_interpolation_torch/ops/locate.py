@@ -64,17 +64,6 @@ def locate2d_ref(qc, g_pack, b_pack, block: int | None = None):
     return out
 
 
-def _check(name, t, shape, dtype, device):
-    if t.dtype != dtype or t.device != device or not t.is_contiguous():
-        raise errors.InvalidArgumentError(
-            f"{name} must be a contiguous {dtype} tensor on {device}"
-        )
-    if tuple(t.shape) != shape:
-        raise errors.InvalidArgumentError(
-            f"{name} has shape {tuple(t.shape)}, expected {shape}"
-        )
-
-
 def locate2d_cuda(qc, g_pack, b_pack):
     """Launch the kernel: int32 leaf [B] for centred float32 qc [B, 2].
 
@@ -83,9 +72,9 @@ def locate2d_cuda(qc, g_pack, b_pack):
     if qc.device.type != "cuda":
         raise errors.InvalidArgumentError("locate2d_cuda needs CUDA tensors")
     B, T = qc.shape[0], g_pack.shape[-1]
-    _check("qc", qc, (B, 2), torch.float32, qc.device)
-    _check("g_pack", g_pack, (4, T), torch.float32, qc.device)
-    _check("b_pack", b_pack, (2, T), torch.float32, qc.device)
+    build.check_arg("qc", qc, (B, 2), torch.float32, qc.device)
+    build.check_arg("g_pack", g_pack, (4, T), torch.float32, qc.device)
+    build.check_arg("b_pack", b_pack, (2, T), torch.float32, qc.device)
     if T < 1 or B >= 2**31 or 4 * T >= 2**31:  # int32 offsets in the kernel
         raise errors.InvalidArgumentError(f"unsupported sizes B={B}, T={T}")
     out = torch.empty(B, dtype=torch.int32, device=qc.device)

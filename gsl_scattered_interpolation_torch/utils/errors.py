@@ -2,7 +2,8 @@
 
 Two calling conventions mirror GSL's ``_e`` / non-``_e`` split
 (``interp.c:131-151``): batched device code returns a status tensor beside
-its results, and host-facing wrappers raise :class:`GslError` subclasses.
+its results, and host-facing wrappers raise :class:`GslError` subclasses
+(:func:`strict_check` is the one host read between the two).
 """
 
 from __future__ import annotations
@@ -61,3 +62,13 @@ def check_status(status: int, msg: str = "") -> None:
     if status == SUCCESS:
         return
     raise _CODE_TO_EXC.get(status, GslError)(msg or f"status={status}")
+
+
+def strict_check(ok, exc: type[GslError], msg: str) -> None:
+    """Raise ``exc`` if any entry of ``ok`` (a bool tensor) is False.
+
+    One host read of ``ok.all()``.  The JAX package's version skips the
+    check under tracing; PyTorch runs eagerly, so it always checks.
+    """
+    if not bool(ok.all()):
+        raise exc(msg)

@@ -1,10 +1,22 @@
 """Integrity checks on triangulation arrays, the reference's sanitizer as a
 test oracle (``linear_simplex_integrity_check.c``).
 
-The counterpart of ``check_arrays`` in the JAX package's
-``utils/integrity.py``: vectorized numpy passes over compacted
-``tri_v``/``tri_n`` arrays [T, d+1] (-1 = boundary face) and standardized
-points [P, d] (rows 0..d the cage, then the data).
+The counterpart of the JAX package's ``utils/integrity.py``.  Over a
+host ``SimplexTree`` (``models/host_tree.py``):
+
+* :func:`check_structure`: the per-leaf invariants of
+  integrity_check.c:62-119: no repeated vertex, not its own neighbour, no
+  repeated neighbour, reverse links exist, and the vertex opposite a shared
+  face lies in neither simplex.
+* :func:`check_delaunay`: the global empty-circumsphere property
+  (integrity_check.c:134-168), every point against every leaf's sphere with
+  the reference's ``r2 (1 - sqrt(eps))`` tolerance.
+* :func:`output_triangulation`: the gnuplot-ready edge, point and circle
+  dumps of integrity_check.c:246-284.
+
+Over compacted ``tri_v``/``tri_n`` arrays [T, d+1] (-1 = boundary face) and
+standardized points [P, d] (rows 0..d the cage, then the data), vectorized
+numpy passes:
 
 * :func:`check_array_structure`: the per-leaf invariants of
   integrity_check.c:62-119, O(T).
@@ -22,6 +34,71 @@ import torch
 
 from ..ops import geometry
 from . import machine
+
+
+def check_structure(tree) -> None:
+    """Assert per-leaf structural invariants over all current leaves."""
+    d = tree.dim
+    leaves = tree.leaves()
+    leaf_set = set(leaves)
+    for node in leaves:
+        pts = tree.tri_points[node]
+        links = tree.tri_links[node]
+        assert len(set(pts.tolist())) == d + 1, f"repeated vertex in {node}"
+        nz = [l for l in links if l != 0]
+        assert node not in nz, f"{node} is its own neighbor"
+        assert len(nz) == len(set(nz)), f"repeated neighbor in {node}"
+        for i in range(d + 1):
+            nbr = int(links[i])
+            if nbr == 0:
+                continue
+            assert nbr in leaf_set, f"neighbor {nbr} of {node} is not a leaf"
+            # The vertex opposite the shared face is in neither simplex.
+            assert pts[i] not in tree.tri_points[nbr], (
+                f"face vertex {pts[i]} of {node} also in neighbor {nbr}"
+            )
+            back = np.where(tree.tri_links[nbr] == node)[0]
+            assert back.size == 1, f"no unique reverse link {nbr}->{node}"
+            assert tree.tri_points[nbr, back[0]] not in pts, (
+                f"far vertex of {nbr} also in {node}"
+            )
+
+
+def check_delaunay(tree, dtype=np.float64) -> None:
+    """Assert the global empty-circumsphere property, vectorized.
+
+    Every inserted data point must lie outside (or on, within the
+    ``1-sqrt(eps)`` slack of integrity_check.c:155-156) every leaf's
+    circumsphere.
+    """
+    leaves = tree.leaves()
+    if tree.n_points == 0:
+        return
+    d = tree.dim
+    # Standardized coords of all point ids used by leaves.
+    centers = []
+    r2s = []
+    for node in leaves:
+        c, r2 = tree._circumsphere_pts(tree.tri_points[node])
+        if c is None:
+            continue  # degenerate simplex: skip, as its sphere is undefined
+        centers.append(c)
+        r2s.append(r2)
+    if not centers:
+        return
+    centers = np.asarray(centers)  # [L, d]
+    r2s = np.asarray(r2s)  # [L]
+    pts = np.stack([tree.point_std(i) for i in range(tree.n_points)])  # [N, d]
+    d2 = np.sum((pts[:, None, :] - centers[None, :, :]) ** 2, axis=-1)  # [N, L]
+    ok = d2 > r2s[None, :] * (1 - machine.sqrt_eps(dtype))
+    if not np.all(ok):
+        bad = np.argwhere(~ok)
+        i, l = bad[0]
+        raise AssertionError(
+            f"Delaunay violated: point {i} inside circumsphere of leaf "
+            f"{leaves[int(l)]} (d2={d2[i, l]:.3e} < r2={r2s[l]:.3e}); "
+            f"{bad.shape[0]} violations total"
+        )
 
 
 def check_array_structure(tri_v, tri_n) -> None:
@@ -109,3 +186,56 @@ def local_delaunay_violations(pts, tri_v, tri_n, dtype=np.float64) -> int:
         d2 = (pts[far, 0] - cx) ** 2 + (pts[far, 1] - cy) ** 2
         bad += int(np.sum(has & (d2 <= r2 * tol)))
     return bad
+
+
+def output_triangulation(
+    tree,
+    response=None,
+    standardize: bool = False,
+    lines_path=None,
+    points_path=None,
+    circles_path=None,
+) -> None:
+    """Dump gnuplot-ready triangulation files (integrity_check.c:246-284).
+
+    Edges between data vertices (seed/cage vertices skipped), one blank-line
+    separated segment pair per edge with the response as third column;
+    points in standardized coords; per-leaf circumcircles as x y r rows.
+    """
+    leaves = tree.leaves()
+
+    def coord(pid):
+        if standardize:
+            return tree.point_std(pid)
+        return tree.point_coords(pid)
+
+    if lines_path:
+        with open(lines_path, "w") as f:
+            for node in leaves:
+                pts = tree.tri_points[node]
+                for i in range(tree.dim + 1):
+                    for j in range(i + 1, tree.dim + 1):
+                        i1, i2 = int(pts[i]), int(pts[j])
+                        if i1 < 0 or i2 < 0:
+                            continue
+                        for pid in (i1, i2):
+                            r = (
+                                float(response[tree.shuffle[pid]])
+                                if response is not None
+                                else 0.0
+                            )
+                            xy = " ".join(f"{v:g}" for v in coord(pid))
+                            f.write(f"{xy} {r:g}\n")
+                        f.write("\n\n")
+    if points_path:
+        with open(points_path, "w") as f:
+            for i in range(tree.n_points):
+                xy = " ".join(f"{v:g}" for v in tree.point_std(i))
+                f.write(f"{xy}\n")
+    if circles_path:
+        with open(circles_path, "w") as f:
+            for node in leaves:
+                c, r2 = tree._circumsphere_pts(tree.tri_points[node])
+                if c is None:
+                    continue
+                f.write(f"{c[0]:g} {c[1]:g} {np.sqrt(r2):g}\n")

@@ -414,3 +414,95 @@ def test_local_kriging_on_card_equals_cpu(cuda):
     auto_c = kriging.LocalKriging(sites, vals, device="cpu")
     for a, b in zip(auto.variogram[1:], auto_c.variogram[1:]):
         assert a == pytest.approx(b, rel=1e-9, abs=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(4096, 1), (4096, 64), (1, 3), (2, 1), (9, 65), (1000, 130)])
+def test_tridiag_kernel_equals_plain(cuda, dtype, n, m):
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    gen = torch.Generator(device=cuda).manual_seed(n + m)
+    d = (torch.rand(n, generator=gen, device=cuda, dtype=dtype) + 3.0).contiguous()
+    e = (torch.rand(max(n - 1, 0), generator=gen, device=cuda, dtype=dtype) * 2 - 1).contiguous()
+    b = torch.randn(n, m, generator=gen, device=cuda, dtype=dtype)
+    before = tridiag.thomas_cuda.launches
+    got = tridiag.thomas_cuda(d, e, b)
+    torch.cuda.synchronize()
+    assert tridiag.thomas_cuda.launches == before + 1
+    assert got.shape == (n, m) and got.dtype == dtype
+    torch.testing.assert_close(got, tridiag.thomas_ref(d, e, b), rtol=0, atol=0)
+    # The plain version on the CPU gives the same bits.
+    torch.testing.assert_close(got.cpu(), tridiag.thomas_ref(d.cpu(), e.cpu(), b.cpu()),
+                               rtol=0, atol=0)
+
+
+def test_tridiag_wrapper_checks_inputs(cuda):
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    d = torch.ones(5, device=cuda) * 4
+    e = torch.ones(4, device=cuda)
+    b = torch.ones(5, 2, device=cuda)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.thomas_cuda(d.double(), e, b)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.thomas_cuda(d, e[:3], b)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.thomas_cuda(d, e, b[:, 0])
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.thomas_cuda(d, e, torch.ones(2, 5, device=cuda).T)
+    assert tridiag.thomas_cuda(d, e, b[:, :0]).shape == (5, 0)
+
+
+def test_interp1d_on_card_matches_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import interp1d
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    rng = np.random.default_rng(47)
+    for kind in sorted(interp1d.TYPES):
+        n = 12 if kind == "polynomial" else 3000
+        x = np.cumsum(rng.uniform(0.5, 1.5, n))
+        y = rng.normal(size=n)
+        if kind.endswith("periodic"):
+            y[-1] = y[0]
+        before = tridiag.thomas_cuda.launches
+        ours = interp1d.Interp1D(x, y, kind, device=cuda, dtype=torch.float64)
+        ref = interp1d.Interp1D(x, y, kind, device="cpu", dtype=torch.float64)
+        assert tridiag.thomas_cuda.launches == before + (kind.startswith("cspline"))
+        q = np.concatenate([rng.uniform(x[0] - 1, x[-1] + 1, 20_000), x])
+        for op in ("eval", "eval_deriv", "eval_deriv2"):
+            a, b = getattr(ours, op)(q).cpu(), getattr(ref, op)(q)
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), (kind, op)
+            scale = max(1.0, float(b.nan_to_num().abs().max()))
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * scale, equal_nan=True)
+        a, b = ours.eval_integ(x[0], q).cpu(), ref.eval_integ(x[0], q)
+        scale = max(1.0, float(b.nan_to_num().abs().max()))
+        if kind == "polynomial":
+            # The monomial form's terms cancel: hold the integral to their
+            # magnitude (tests/test_torch_interp1d.py).
+            mono = interp1d._poly_monomial(ref.dd, ref.x)
+            k = torch.arange(mono.numel(), dtype=mono.dtype) + 1.0
+            t = torch.tensor(np.concatenate([q, [x[0]]]))
+            scale = float((mono * t[:, None] ** k / k).abs().sum(-1).max()) * 2
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * scale, equal_nan=True)
+
+
+def test_interp2d_on_card_matches_cpu(cuda):
+    from gsl_scattered_interpolation_torch.models import interp2d
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    rng = np.random.default_rng(48)
+    x = np.cumsum(rng.uniform(0.5, 1.5, 200))
+    y = np.cumsum(rng.uniform(0.5, 1.5, 150))
+    z = np.sin(0.1 * x)[:, None] * np.cos(0.07 * y)[None, :] + rng.normal(size=(200, 150)) * 0.01
+    xq = rng.uniform(x[0] - 1, x[-1] + 1, 50_000)
+    yq = rng.uniform(y[0] - 1, y[-1] + 1, 50_000)
+    for kind in ("bilinear", "bicubic"):
+        before = tridiag.thomas_cuda.launches
+        ours = interp2d.Interp2D(x, y, z, kind, device=cuda, dtype=torch.float64)
+        ref = interp2d.Interp2D(x, y, z, kind, device="cpu", dtype=torch.float64)
+        assert tridiag.thomas_cuda.launches == before + 3 * (kind == "bicubic")
+        for op in ("eval", "eval_extrap", "eval_deriv_x", "eval_deriv_y", "eval_deriv_xx",
+                   "eval_deriv_xy", "eval_deriv_yy"):
+            a, b = getattr(ours, op)(xq, yq).cpu(), getattr(ref, op)(xq, yq)
+            scale = max(1.0, float(b.nan_to_num().abs().max()))
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * scale, equal_nan=True)

@@ -25,6 +25,10 @@ import sys
 for name in {forbidden!r}:
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np
+import torch
+# One intra-op thread: the test workers share the machine's cores, and a
+# thread pool per process would oversubscribe them.
+torch.set_num_threads(1)
 import chip_smoke
 from gsl_scattered_interpolation_torch import ScatteredInterp
 from gsl_scattered_interpolation_torch.utils import datasets
@@ -73,6 +77,19 @@ fits = [rbf.RbfInterp(xr, fr, device="cpu").eval(xr),
         rbf_pu.evaluate(rbf_pu.fit(xr, fr, device="cpu"), xr),
         kriging.LocalKriging(xr, fr, device="cpu").predict(xr)[0]]
 print(*(float((v.numpy() - fr).__abs__().max()) for v in fits))
+import gsl_scattered_interpolation_torch as gsi
+from gsl_scattered_interpolation_torch.models import geometry_extras, surface, thinning
+from gsl_scattered_interpolation_torch.utils import config, integrity, profiling, serialize, testing
+xs = np.linspace(0.0, 3.0, 12)
+one = [gsi.interp(xs, np.sin(xs), k, device="cpu").eval(xs) for k in ("cspline", "akima")]
+two = gsi.interp2d(xs, xs, np.outer(np.sin(xs), np.cos(xs)), device="cpu").eval(xs, xs)
+print(float(max((v.numpy() - np.sin(xs)).__abs__().max() for v in one)),
+      float((two.numpy() - np.sin(xs) * np.cos(xs)).__abs__().max()))
+from scipy.spatial import Delaunay
+tri = geometry_extras.from_scipy_delaunay(Delaunay(xr), xr, device="cpu")
+th = thinning.thin(xr, fr, tol=0.05, key=0, device="cpu")
+print(len(geometry_extras.convex_hull_points(tri)), len(geometry_extras.voronoi(tri)[0]),
+      th.max_error <= 0.05, surface.alpha_shape(tri, 0.5).faces.shape[1])
 """
 
 
@@ -131,3 +148,9 @@ def test_slice_runs_with_jax_blocked():
     # and pcg, CompactRbf, the partition-of-unity fit, LocalKriging.
     resid = np.array(lines[11].split(), float)
     assert resid.shape == (5,) and np.all(resid < 1e-6), resid
+    # The GSL structured family reproduces its knots; the geometry
+    # consumers run over a Qhull import.
+    knots = np.array(lines[12].split(), float)
+    assert knots.shape == (2,) and np.all(knots < 1e-12), knots
+    n_hull, n_vor, thin_ok, face_width = lines[13].split()
+    assert int(n_hull) >= 3 and int(n_vor) > 100 and thin_ok == "True" and face_width == "2"
