@@ -1221,26 +1221,50 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
+def _counted():
+    """{kernel: its wrapper}, each wrapper carrying its launch count (looked
+    up now: a Recorder may stand in for the tridiagonal wrapper)."""
+    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
+
+    return {"locate2d": locate.locate2d_cuda,
+            "candmath2d": candmath.edge_candidates_math_cuda,
+            "tridiag": tridiag.thomas_cuda}
+
+
+def _main_run(rec, fn):
+    """``fn()`` as a run of the configuration's main path: every kernel
+    counter set to 0 just before and read just after, the counts added to
+    ``rec["main_launches"]``.  The checks and timings around it launch
+    kernels too; those launches are not counted."""
+    wrappers = _counted()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    main = rec.setdefault("main_launches", dict.fromkeys(wrappers, 0))
+    for k, w in wrappers.items():
+        main[k] += w.launches
+    return out
+
+
 def _config(name, device, body):
     """Run ``body(rec)`` for one configuration with every kernel counter
     and the peak-memory counter set to 0 just before; the record gets the
-    launches, the peak memory and the seconds."""
+    peak memory, the seconds and the launches: those of the runs the body
+    marks with :func:`_main_run`, or of the whole body where it marks none
+    (the RBF phase, on which no kernel runs)."""
     import torch
 
-    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
-
-    locate.locate2d_cuda.launches = 0
-    candmath.edge_candidates_math_cuda.launches = 0
-    tridiag.thomas_cuda.launches = 0
+    wrappers = _counted()
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rec = {}
     body(rec)
+    main = rec.pop("main_launches", None) or {k: w.launches for k, w in _counted().items()}
     rec.update(phase_s=time.perf_counter() - t0,
                peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
-               locate2d_launches=locate.locate2d_cuda.launches,
-               candmath2d_launches=candmath.edge_candidates_math_cuda.launches,
-               tridiag_launches=tridiag.thomas_cuda.launches)
+               **{f"{k}_launches": n for k, n in main.items()})
     log(f"{name}: {json.dumps(rec)}")
     return rec
 
@@ -1506,6 +1530,11 @@ ALPHA_AXIS = 49            # nodes per axis of alpha_ball's jittered grid
 SPLINE_VS_SCIPY_MAX = 1e-9   # relative to max |y|
 KNOTS_MAX = 1e-12
 THIN_SLACK = {"float32": 1e-5, "float64": 1e-12}
+# The kernel's Thomas sweeps against cuSOLVER's dense LU with pivoting on
+# the bicubic derivative grid: both backward stable on a diagonally
+# dominant matrix (condition number below 3), so they agree far inside
+# 1e-12 of max |x|.
+TRIDIAG_VS_LIBRARY_MAX = 1e-12
 
 
 def tridiag_bound_ms(n: int, m: int, double: bool):
@@ -1567,23 +1596,29 @@ print(__import__("time").perf_counter() - t)
 
 class PlainOnHost:
     """The plain version of the tridiagonal kernel on a system too long for
-    it on the card (a Python loop of ~10 launches per row): one process
-    per system, on the host's cores, while the phase goes on.  ``check``
-    then holds the kernel's result against it bit for bit."""
+    it on the card (a Python loop of ~10 launches per row): ``add`` saves
+    a system the main path solved, ``start`` solves each in a process of
+    its own on the host's cores, after the last timed configuration so
+    that no host time is measured beside them, and ``check`` holds the
+    kernel's result against it bit for bit."""
 
     def __init__(self, tmpdir):
-        self.tmpdir, self.jobs = tmpdir, []
+        self.tmpdir, self.systems, self.jobs = tmpdir, [], []
 
-    def start(self, label, diag, offdiag, rhs, x):
+    def add(self, label, diag, offdiag, rhs, x):
         import os
 
         src = os.path.join(self.tmpdir, f"{label}_in.npz")
         out = os.path.join(self.tmpdir, f"{label}_out.npy")
         np.savez(src, diag=diag.cpu().numpy(), offdiag=offdiag.cpu().numpy(),
                  rhs=rhs.cpu().numpy())
-        proc = subprocess.Popen([sys.executable, "-c", PLAIN_SCRIPT, src, out],
-                                stdout=subprocess.PIPE, text=True)
-        self.jobs.append((label, proc, out, x.cpu().numpy()))
+        self.systems.append((label, src, out, x.cpu().numpy()))
+
+    def start(self):
+        for label, src, out, x in self.systems:
+            proc = subprocess.Popen([sys.executable, "-c", PLAIN_SCRIPT, src, out],
+                                    stdout=subprocess.PIPE, text=True)
+            self.jobs.append((label, proc, out, x))
 
     def check(self, timeout: float = 300.0):
         recs = []
@@ -1604,9 +1639,11 @@ class PlainOnHost:
                 proc.wait()
 
 
-def tridiag_record(diag, offdiag, rhs, label, reps=5, plain=True):
+def tridiag_record(diag, offdiag, rhs, label, reps=5, plain=True, library=False):
     """The tridiagonal kernel against its plain version on the card on one
-    system, with the times of both and the bound."""
+    system, with the times of both and the bound; with ``library``, also
+    against ``torch.linalg.solve`` on the dense matrix (built outside the
+    timed calls), timed as the library call."""
     import torch
 
     from gsl_scattered_interpolation_torch.ops import tridiag
@@ -1624,6 +1661,14 @@ def tridiag_record(diag, offdiag, rhs, label, reps=5, plain=True):
         rec["max_abs_err"] = float((got - ref).abs().max())
     rec["ms"] = time_ms(lambda: tridiag.thomas_cuda(diag, offdiag, rhs), reps)
     rec["bound_ms"], rec["bound_by"] = tridiag_bound_ms(n, m, rhs.dtype == torch.float64)
+    if library:
+        dense = torch.diag(diag) + torch.diag(offdiag, 1) + torch.diag(offdiag, -1)
+        lib = torch.linalg.solve(dense, rhs)
+        rec["library_max_rel_err"] = float((lib - got).abs().max() / got.abs().max())
+        rec["library_ms"] = time_ms(lambda: torch.linalg.solve(dense, rhs), reps)
+        del dense, lib
+        require(rec["library_max_rel_err"] <= TRIDIAG_VS_LIBRARY_MAX,
+                f"tridiag disagrees with torch.linalg.solve: {rec}")
     log(f"tridiag kernel: {json.dumps(rec)}")
     require(rec.get("mismatches", 0) == 0, f"tridiag disagrees with its plain version: {rec}")
     return rec
@@ -1647,9 +1692,10 @@ def gsl_golden(rec, device="cuda"):
     kw = dict(device=device, dtype=torch.float64)
     worst = {}
     for kind in KINDS_1D:
-        it = gsi.interp(x, y, kind, **kw)
-        got = {"eval": it.eval(q), "deriv": it.eval_deriv(q), "deriv2": it.eval_deriv2(q),
-               "integ": it.eval_integ(x[0], q)}
+        it = _main_run(rec, lambda: gsi.interp(x, y, kind, **kw))
+        got = _main_run(rec, lambda: {
+            "eval": it.eval(q), "deriv": it.eval_deriv(q), "deriv2": it.eval_deriv2(q),
+            "integ": it.eval_integ(x[0], q)})
         tols = {"eval": 1e-10, "deriv": 1e-9, "deriv2": 1e-8,
                 "integ": 1e-6 if kind == "polynomial" else 1e-10}
         for op, v in got.items():
@@ -1664,10 +1710,10 @@ def gsl_golden(rec, device="cuda"):
     qx = gx[0] + (gx[-1] - gx[0]) * k / 24.0
     qy = gy[0] + (gy[-1] - gy[0]) * ((k * 7) % 25) / 24.0
     for kind in ("bilinear", "bicubic"):
-        it = gsi.interp2d(gx, gy, z, kind, **kw)
+        it = _main_run(rec, lambda: gsi.interp2d(gx, gy, z, kind, **kw))
         for op, fn, tol in (("eval", it.eval, 1e-10), ("deriv_x", it.eval_deriv_x, 1e-9),
                             ("deriv_y", it.eval_deriv_y, 1e-9)):
-            v = fn(qx, qy).cpu().numpy()
+            v = _main_run(rec, lambda: fn(qx, qy)).cpu().numpy()
             testing.test_abs(v, g[kind][op], tol, f"golden {kind} {op}")
             worst[f"{kind}.{op}"] = float(np.abs(v - np.asarray(g[kind][op])).max())
     rec["max_abs_err"] = worst
@@ -1719,11 +1765,13 @@ def gsl1d_1m(rec, plain, device="cuda"):
         lo = torch.minimum(qk[:N_INTEG], qk[N_INTEG:2 * N_INTEG])
         hi = torch.maximum(qk[:N_INTEG], qk[N_INTEG:2 * N_INTEG])
         with Recorder() as recd:
-            it, r["init_s"] = _timed(lambda: gsi.interp(kx, ky, kind, **f64), device)
+            it, r["init_s"] = _main_run(rec, lambda: _timed(
+                lambda: gsi.interp(kx, ky, kind, **f64), device))
         r["tridiag_main_launches"] = len(recd.calls)
         for op in ("eval", "eval_deriv", "eval_deriv2"):
-            _, r[op] = _qps(lambda: getattr(it, op)(qk), Q_1D, device)
-        ik, r["eval_integ"] = _qps(lambda: it.eval_integ(lo, hi), N_INTEG, device)
+            _, r[op] = _main_run(rec, lambda: _qps(lambda: getattr(it, op)(qk), Q_1D, device))
+        ik, r["eval_integ"] = _main_run(rec, lambda: _qps(
+            lambda: it.eval_integ(lo, hi), N_INTEG, device))
         require(bool(torch.isfinite(ik).all()), f"gsl1d {kind}: non-finite integrals")
         at = np.arange(kx.size) if kind == "polynomial" else knots
         r["knots_max_err"] = float(np.abs(it.eval(kx[at]).cpu().numpy() - ky[at]).max())
@@ -1737,7 +1785,7 @@ def gsl1d_1m(rec, plain, device="cuda"):
         require(r["knots_max_err"] <= KNOTS_MAX * scale, f"gsl1d {kind} knots: {r}")
         if kind.startswith("cspline"):
             require(len(recd.calls) == 1, f"{kind}: {len(recd.calls)} tridiagonal launches")
-            plain.start(f"gsl1d_{kind}", *recd.calls[0])
+            plain.add(f"gsl1d_{kind}", *recd.calls[0])
             r["tridiag_kernel"] = tridiag_record(*recd.calls[0][:3], f"gsl1d_{kind}",
                                                  reps=3, plain=False)
             busy, wall, rows = profile_build(lambda: gsi.interp(kx, ky, kind, **f64))
@@ -1801,11 +1849,12 @@ def gsl2d_2k(rec, device="cuda"):
     for kind in ("bilinear", "bicubic"):
         r = {}
         with Recorder() as recd:
-            it, r["init_s"] = _timed(lambda: gsi.interp2d(gx, gy, z, kind, **f64), device)
+            it, r["init_s"] = _main_run(rec, lambda: _timed(
+                lambda: gsi.interp2d(gx, gy, z, kind, **f64), device))
         r["tridiag_main_launches"] = len(recd.calls)
         for op in ("eval", "eval_deriv_x", "eval_deriv_y", "eval_deriv_xx",
                    "eval_deriv_xy", "eval_deriv_yy"):
-            v, r[op] = _qps(lambda: getattr(it, op)(xq, yq), Q_2D, device)
+            v, r[op] = _main_run(rec, lambda: _qps(lambda: getattr(it, op)(xq, yq), Q_2D, device))
             require(bool(torch.isfinite(v).all()), f"gsl2d {kind} {op}: non-finite")
             del v
         if kind == "bilinear":
@@ -1815,7 +1864,8 @@ def gsl2d_2k(rec, device="cuda"):
         else:
             require(len(recd.calls) == 3, f"bicubic: {len(recd.calls)} tridiagonal launches")
             for label, call in zip(("zx", "zy", "zxy"), recd.calls):
-                recs.append(tridiag_record(*call[:3], f"gsl2d_{label}", reps=5))
+                recs.append(tridiag_record(*call[:3], f"gsl2d_{label}", reps=5,
+                                           library=label == "zx"))
             busy, wall, rows = profile_build(lambda: gsi.interp2d(gx, gy, z, kind, **f64))
             k_ms = sum(ms for name, (_, ms) in rows.items() if "thomas" in name)
             r["profiled_init"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
@@ -1855,15 +1905,15 @@ def boundary_100k(rec, device="cuda"):
     t0 = time.perf_counter()
     sd = Delaunay(sites)
     rec["qhull_s"] = time.perf_counter() - t0
-    tri32, rec["import_s"] = _timed(
-        lambda: gx.from_scipy_delaunay(sd, sites, device=device).cast(torch.float32), device)
+    tri32, rec["import_s"] = _main_run(rec, lambda: _timed(
+        lambda: gx.from_scipy_delaunay(sd, sites, device=device).cast(torch.float32), device))
     rec["n_tris"] = int(tri32.n_tris)
     require(tri32.n_tris >= 100_000, f"T = {tri32.n_tris}")
     q = torch.tensor(rng.uniform(-0.45, 0.45, size=(Q_BOUNDARY, 2)), dtype=torch.float32,
                      device=device)
-    launches = locate.locate2d_cuda.launches
-    idx_p = locate.locate_dense_kernel(tri32, q)
-    rec["kernel_launches"] = locate.locate2d_cuda.launches - launches
+    before = rec["main_launches"]["locate2d"]
+    idx_p = _main_run(rec, lambda: locate.locate_dense_kernel(tri32, q))
+    rec["kernel_launches"] = rec["main_launches"]["locate2d"] - before
     idx_d = device_tri.locate_dense(tri32, q)[0]
     vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
     resp = torch.cat([torch.zeros(3, device=device),
@@ -1907,16 +1957,19 @@ def geometry_200k(rec, device="cuda"):
 
     sites = np.random.default_rng(BUILD_SEED).uniform(-0.5, 0.5, size=(N_GEOM, 2))
     ref = np.sort(ConvexHull(sites).vertices)
-    imported = gx.from_scipy_delaunay(Delaunay(sites), sites, device=device)
-    hull, rec["hull_s"] = _timed(lambda: gx.convex_hull_points(imported), device)
+    sd = Delaunay(sites)
+    imported = _main_run(rec, lambda: gx.from_scipy_delaunay(sd, sites, device=device))
+    hull, rec["hull_s"] = _main_run(rec, lambda: _timed(
+        lambda: gx.convex_hull_points(imported), device))
     rec["hull_points"] = int(hull.size)
     require(np.array_equal(hull, ref), "the Qhull import's hull differs from scipy's")
-    (tri, shuffle), rec["build_s"] = _timed(lambda: dd.triangulate(
-        sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float64, device=device), device)
-    native = np.sort(shuffle[gx.convex_hull_points(tri)])
+    (tri, shuffle), rec["build_s"] = _main_run(rec, lambda: _timed(lambda: dd.triangulate(
+        sites, flags=host_tree.NOSTANDARDIZE, dtype=torch.float64, device=device), device))
+    native = np.sort(shuffle[_main_run(rec, lambda: gx.convex_hull_points(tri))])
     rec["native_hull_extra_points"] = int(np.setdiff1d(native, ref).size)
     require(np.isin(ref, native).all(), "the device build's hull misses a hull point")
-    (centers, ridges), rec["voronoi_s"] = _timed(lambda: gx.voronoi(tri), device)
+    (centers, ridges), rec["voronoi_s"] = _main_run(rec, lambda: _timed(
+        lambda: gx.voronoi(tri), device))
     tv = tri.tri_verts.cpu().numpy()
     data = (tv > 2).all(1)
     rec["voronoi_vertices"], rec["voronoi_ridges"] = int(centers.shape[0]), int(ridges.shape[0])
@@ -1929,6 +1982,11 @@ def geometry_200k(rec, device="cuda"):
     # so a triangle's relative error is about eps kappa |v|^2 / R^2, 7e-8
     # for the smallest (R ~ 8e-5) of 200k sites in the unit square.  Each
     # centre is held to 1e-9 or 4 times that rounding bound if larger.
+    # tools/voronoi_equidistance.py reads the JAX package's circumsphere on
+    # the Delaunay triangles of these sites on the CPU: the same worst
+    # 4.19e-9 with the same 10 triangles over 1e-9, the port's centres
+    # equal to JAX's, and 4.2e-13 for the system solved relative to a
+    # vertex.
     kappa = np.linalg.cond(pts[:, :2, :] - pts[:, 1:, :])
     bound = np.maximum(1e-9, 4 * np.finfo(np.float64).eps * kappa
                        * (pts ** 2).sum(-1).max(1) / dist.max(1) ** 2)
@@ -1941,13 +1999,15 @@ def geometry_200k(rec, device="cuda"):
                                "device_idle_share": 1.0 - busy / wall}
     resp = device_tri.response_for_build(shuffle, np.sin(6 * sites[:, 0]), device=device)
     q = uniform_queries(Q_GEOM, seed=5, device=device)[0].double()
-    before = device_tri.interp(tri, resp, q)
+    before = _main_run(rec, lambda: device_tri.interp(tri, resp, q))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "tri.npz")
-        _, rec["save_s"] = _timed(lambda: serialize.save(path, tri, resp), device)
+        _, rec["save_s"] = _main_run(rec, lambda: _timed(
+            lambda: serialize.save(path, tri, resp), device))
         rec["file_MB"] = os.path.getsize(path) / 1e6
-        (tri2, resp2), rec["load_s"] = _timed(lambda: serialize.load(path, device=device), device)
-    after = device_tri.interp(tri2, resp2, q)
+        (tri2, resp2), rec["load_s"] = _main_run(rec, lambda: _timed(
+            lambda: serialize.load(path, device=device), device))
+    after = _main_run(rec, lambda: device_tri.interp(tri2, resp2, q))
     require(bool(torch.equal(before, after)), "eval differs after save/load")
 
 
@@ -1968,6 +2028,39 @@ def _thin_contract(res, sites, vals, native: bool):
     return float(np.abs(est - vals[drop]).max())
 
 
+class RoundClock:
+    """Within ``with``, time each call of ``device_tri.interp`` (one thin
+    round's evaluation of its dropped sites), the card synchronised before
+    and after, and the time from the end of the previous call (or from
+    entry) to its start: the round's build and its host bookkeeping."""
+
+    def __enter__(self):
+        from gsl_scattered_interpolation_torch.models import device_tri
+
+        self.rounds, self._orig = [], device_tri.interp
+        self._last = time.perf_counter()
+
+        def timed(tri, resp, q, *args, **kw):
+            sync(q.device)
+            t0 = time.perf_counter()
+            out = self._orig(tri, resp, q, *args, **kw)
+            sync(q.device)
+            t1 = time.perf_counter()
+            self.rounds.append({"dropped": int(q.shape[0]), "n_tris": int(tri.n_tris),
+                                "build_s": t0 - self._last, "interp_s": t1 - t0})
+            self._last = t1
+            return out
+
+        device_tri.interp = timed
+        return self
+
+    def __exit__(self, *exc):
+        from gsl_scattered_interpolation_torch.models import device_tri
+
+        device_tri.interp = self._orig
+        return False
+
+
 def thin_200k(rec, device="cuda"):
     """thin() of 200,000 sites to tol 1e-3: the device builder in float32
     (each round's build launches the candidate kernel; its evaluation
@@ -1976,23 +2069,21 @@ def thin_200k(rec, device="cuda"):
     import torch
 
     from gsl_scattered_interpolation_torch.models import device_tri, thinning
-    from gsl_scattered_interpolation_torch.ops import candmath, locate
 
     rng = np.random.default_rng(45)
     sites = rng.uniform(-1.0, 1.0, size=(N_THIN, 2))
     vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
     for builder, dtype in (("device", torch.float32), ("qhull", torch.float64)):
         name = str(dtype).split(".")[-1]
-        r, stats = {}, []
-        l0 = locate.locate2d_cuda.launches
-        c0 = candmath.edge_candidates_math_cuda.launches
-        res, r["thin_s"] = _timed(lambda: thinning.thin(
-            sites, vals, THIN_TOL, builder=builder, dtype=dtype, device=device,
-            stats=stats), device)
+        r = {}
+        before = dict(rec.get("main_launches", dict.fromkeys(_counted(), 0)))
+        with RoundClock() as clock:
+            res, r["thin_s"] = _main_run(rec, lambda: _timed(lambda: thinning.thin(
+                sites, vals, THIN_TOL, builder=builder, dtype=dtype, device=device), device))
         r.update(rounds=res.rounds, kept=int(res.keep.size), max_error=res.max_error,
-                 locate2d_launches=locate.locate2d_cuda.launches - l0,
-                 candmath2d_launches=candmath.edge_candidates_math_cuda.launches - c0,
-                 per_round=stats)
+                 locate2d_launches=rec["main_launches"]["locate2d"] - before["locate2d"],
+                 candmath2d_launches=rec["main_launches"]["candmath2d"] - before["candmath2d"],
+                 per_round=clock.rounds)
         require(res.max_error <= THIN_TOL, f"thin {builder}: {r}")
         r["scipy_max_miss"] = _thin_contract(res, sites, vals, builder == "device")
         require(r["scipy_max_miss"] <= THIN_TOL + THIN_SLACK[name], f"thin {builder} contract: {r}")
@@ -2024,8 +2115,8 @@ def alpha_ball_61k(rec, device="cuda"):
     h = g[1] - g[0]
     pts = pts + rng.uniform(-0.05 * h, 0.05 * h, pts.shape)
     rec["points"] = int(pts.shape[0])
-    (faces, alpha), rec["reconstruct_s"] = _timed(
-        lambda: surface.reconstruct_surface(pts, alpha=1.2 * h, device=device), device)
+    (faces, alpha), rec["reconstruct_s"] = _main_run(rec, lambda: _timed(
+        lambda: surface.reconstruct_surface(pts, alpha=1.2 * h, device=device), device))
     t0 = time.perf_counter()
     sd = Delaunay(pts)
     rec["qhull_s"] = time.perf_counter() - t0
@@ -2049,8 +2140,10 @@ def alpha_ball_61k(rec, device="cuda"):
 def phase_structured(device="cuda"):
     """The structured phase: each configuration counted from zero.  The
     tridiagonal kernel is held against its plain version on every system
-    the main path gave it: on the card for the grids, in processes on the
-    host for the 10^6-row splines.  Returns {name: record}."""
+    the main path gave it: on the card for the grids, and for the 10^6-row
+    splines in processes on the host, started after the last configuration
+    so that they share the host with no timed step.  Returns {name:
+    record}."""
     import tempfile
 
     out = {}
@@ -2066,9 +2159,11 @@ def phase_structured(device="cuda"):
                                ("alpha_ball_61k", alpha_ball_61k)):
                 out[name] = _config(name, device, functools.partial(body, device=device))
             t0 = time.perf_counter()
+            plain.start()
             out["tridiag_plain_on_host"] = plain.check()
+            out["plain_on_host_s"] = time.perf_counter() - t0
             log(f"tridiag plain on host: {json.dumps(out['tridiag_plain_on_host'])} "
-                f"(waited {time.perf_counter() - t0:.2f} s)")
+                f"(waited {out['plain_on_host_s']:.2f} s)")
         finally:
             plain.close()
     for r in out["tridiag_plain_on_host"]:
@@ -2080,7 +2175,6 @@ def phase_structured(device="cuda"):
             "the bicubic init did not launch tridiag three times")
     require(out["boundary_100k"]["kernel_launches"] == 1, "boundary: locate2d launches")
     return out
-
 
 
 def tridiag_summary(pcfg, host_checks):
@@ -2096,8 +2190,9 @@ def tridiag_summary(pcfg, host_checks):
         "source": "gsl_scattered_interpolation_torch/kernels/csrc/tridiag.cu",
         # Not a Pallas kernel: JAX's lax.scan Thomas sweeps.
         "replaces": "gsl_scattered_interpolation_tpu/ops/tridiag.py:16",
-        # The inits' launches: one per cspline and cspline_periodic init,
-        # three per bicubic init (not those of the checks and timings).
+        # The timed inits' launches: one per cspline and cspline_periodic
+        # init, three per bicubic init; launches_by_path has each
+        # configuration's main-path runs.
         "launches": sum(r["tridiag_main_launches"] for name in ("gsl1d_1m", "gsl2d_2k")
                         for r in pcfg[name].values()
                         if isinstance(r, dict) and "tridiag_main_launches" in r),
@@ -2108,7 +2203,10 @@ def tridiag_summary(pcfg, host_checks):
         "plain_ms": first["plain_ms"],
         "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"],
-        "library_ms": None,  # no PyTorch call solves a banded system
+        # torch.linalg.solve on the dense matrix at this shape.  None at the
+        # 10^6-row systems, whose dense matrix would take 8 TB.
+        "library_ms": first["library_ms"],
+        "library_max_rel_err": first["library_max_rel_err"],
         "shape": f"n={first['n']} m={first['m']} {first['dtype']}",
         "grids": grids,
         "splines_1m": one_d,

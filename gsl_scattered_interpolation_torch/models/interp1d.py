@@ -37,7 +37,7 @@ import torch
 
 from ..ops import tridiag
 from ..utils import errors
-from .rbf import device_dtype
+from ..utils.config import device_dtype
 
 # ---------------------------------------------------------------------------
 # Interval search (gsl_interp_bsearch / gsl_interp_accel_find parity)

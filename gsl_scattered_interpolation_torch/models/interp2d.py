@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..utils import errors
+from ..utils.config import device_dtype
 from . import interp1d
-from .rbf import device_dtype
 
 
 def idx(i, j, xsize):

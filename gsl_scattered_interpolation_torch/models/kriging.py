@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from . import rbf, rbf_compact
-from ..utils import errors
+from ..utils import config, errors
 
 log = logging.getLogger(__name__)
 
@@ -186,7 +186,7 @@ class OrdinaryKriging:
         dtype=None,
         device="cuda",
     ):
-        device, dtype = rbf.device_dtype(device, dtype)
+        device, dtype = config.device_dtype(device, dtype)
         sites = np.asarray(sites, np.float64)
         values = np.asarray(values, np.float64)
         n, d = sites.shape
@@ -265,7 +265,7 @@ class LocalKriging:
         dtype=None,
         device="cuda",
     ):
-        device, dtype = rbf.device_dtype(device, dtype)
+        device, dtype = config.device_dtype(device, dtype)
         sites = np.asarray(sites, np.float64)
         values = np.asarray(values, np.float64)
         n, d = sites.shape

@@ -36,6 +36,7 @@ import torch
 
 from ..ops import morton
 from ..utils import errors
+from ..utils.config import device_dtype
 
 log = logging.getLogger(__name__)
 
@@ -146,15 +147,6 @@ def _poly_basis_batched(x, degree: int):
     if degree < 1:
         return ones
     return torch.cat([ones, x], dim=-1)
-
-
-def device_dtype(device, dtype=None):
-    """(torch.device, dtype): float32 on CUDA and float64 elsewhere unless
-    ``dtype`` is given."""
-    device = torch.device(device)
-    if dtype is None:
-        dtype = torch.float32 if device.type == "cuda" else torch.float64
-    return device, dtype
 
 
 def standardization(sites, standardize: bool = True):

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import rbf
-from ..utils import errors, machine
+from ..utils import config, errors, machine
 
 log = logging.getLogger(__name__)
 
@@ -324,7 +324,7 @@ class CompactRbf:
         dtype=None,
         device="cuda",
     ):
-        device, dtype = rbf.device_dtype(device, dtype)
+        device, dtype = config.device_dtype(device, dtype)
         sites = np.asarray(sites, np.float64)
         values = np.asarray(values, np.float64)
         n, d = sites.shape

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import rbf, rbf_compact
-from ..utils import errors
+from ..utils import config, errors
 
 log = logging.getLogger(__name__)
 
@@ -123,7 +123,7 @@ def fit(
     ``stats``, if a dict, receives the grid shape, ``cap``, ``W`` and
     ``W2``.
     """
-    device, dtype = rbf.device_dtype(device, dtype)
+    device, dtype = config.device_dtype(device, dtype)
     sites = np.asarray(sites, np.float64)
     values = np.asarray(values, np.float64)
     n, d = sites.shape

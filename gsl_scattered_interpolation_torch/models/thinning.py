@@ -20,15 +20,13 @@ on CUDA, ``device_tri.interp`` locates through the locate kernel.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils import config, errors, profiling
+from ..utils import config, errors
 from . import device_delaunay, device_tri
-from .rbf import device_dtype
 
 
 class ThinResult(NamedTuple):
@@ -50,7 +48,6 @@ def thin(
     builder: str = "device",
     device="cuda",
     dtype=None,
-    stats: list | None = None,
 ) -> ThinResult:
     """Thin (sites, values) to a subset reproducing all data within tol.
 
@@ -68,12 +65,10 @@ def thin(
       device, dtype: where and in what precision the triangulation is
         built and evaluated (float32 on CUDA, float64 on the CPU by
         default).
-      stats: if given, a list that receives one dict per round (kept
-        count, max error, build and interp seconds).
 
     Returns ThinResult; ``keep`` indexes rows of ``sites``.
     """
-    device, dtype = device_dtype(device, dtype)
+    device, dtype = config.device_dtype(device, dtype)
     sites = np.asarray(sites, np.float64)
     values = np.asarray(values, np.float64)
     n, d = sites.shape
@@ -99,7 +94,6 @@ def thin(
     tri = shuffle = None
     while rounds < max_rounds:
         rounds += 1
-        t0 = time.perf_counter()
         keep_idx = np.nonzero(kept)[0]
         if builder == "qhull":
             from scipy.spatial import Delaunay
@@ -120,9 +114,6 @@ def thin(
             shuffle, values[keep_idx], d=d, device=device
         ).to(dtype)
         drop_idx = np.nonzero(~kept)[0]
-        if stats is not None:
-            profiling.synchronize(resp)
-        t1 = time.perf_counter()
         if drop_idx.size == 0:
             max_err = 0.0
             break
@@ -130,10 +121,6 @@ def thin(
         est = device_tri.interp(tri, resp, q).double().cpu().numpy()
         err = np.abs(est - values[drop_idx])
         max_err = float(err.max())
-        if stats is not None:
-            stats.append({"kept": int(keep_idx.size), "n_tris": tri.n_tris,
-                          "max_error": max_err, "build_s": t1 - t0,
-                          "interp_s": time.perf_counter() - t1})
         if max_err <= tol:
             break
         worst = np.argsort(err)[::-1]

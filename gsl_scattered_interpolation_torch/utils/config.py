@@ -10,14 +10,16 @@ The port reads the JAX package's names, so one environment drives both:
 
 The JAX package's ``GSI_TPU_X64`` and ``enable_compile_cache`` have no
 counterpart: the port's precision is each entry point's ``dtype=``
-(float32 on CUDA, float64 on the CPU), and PyTorch compiles nothing ahead
-of time.
+(``device_dtype``: float32 on CUDA, float64 on the CPU), and PyTorch
+compiles nothing ahead of time.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+
+import torch
 
 log = logging.getLogger("gsl_scattered_interpolation_torch")
 
@@ -35,3 +37,12 @@ def env_setup() -> None:
     if os.environ.get("GSI_TPU_VERBOSE") == "1":
         logging.basicConfig(level=logging.INFO)
         log.setLevel(logging.INFO)
+
+
+def device_dtype(device, dtype=None):
+    """(torch.device, dtype) of an entry point: float32 on CUDA and float64
+    elsewhere unless ``dtype`` is given."""
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.float32 if device.type == "cuda" else torch.float64
+    return device, dtype

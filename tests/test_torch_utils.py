@@ -221,6 +221,21 @@ def test_config_reads_the_jax_names(monkeypatch):
         config.log.setLevel(level)
 
 
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cuda", None, torch.float32),
+    ("cpu", None, torch.float64),
+    ("cuda", torch.float64, torch.float64),
+    ("cpu", torch.float32, torch.float32),
+])
+def test_device_dtype_rule(device, dtype, want):
+    """The port's precision rule, where the JAX package reads GSI_TPU_X64:
+    float32 on CUDA, float64 elsewhere, unless dtype is given.  No tensor
+    is made, so the CUDA cases need no card."""
+    got_device, got_dtype = config.device_dtype(device, dtype)
+    assert got_device == torch.device(device)
+    assert got_dtype == want
+
+
 def test_timer_and_trace(tmp_path):
     timer = profiling.Timer()
     x = torch.arange(1000.0)
