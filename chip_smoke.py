@@ -51,8 +51,9 @@ queries (gsl2d_2k); the locate kernel at T ~ 101,000 against
 Voronoi diagram and a save/load round trip of the 200k sites; ``thin`` of
 200,000 sites with the device builder in float32 and the Qhull builder in
 float64, each held by scipy; and the alpha-shape surface of a 61,000-point
-ball.  The tridiagonal kernel is held against its plain version on every
-system those inits gave it.  Everything is timed.
+ball.  Every tridiagonal system those inits solved is held against the
+plain version of the route it took (partitioned or sequential), on the
+card, with both routes timed.  Everything is timed.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -69,6 +70,7 @@ import subprocess
 import sys
 import time
 from fractions import Fraction
+from typing import NamedTuple
 
 import numpy as np
 
@@ -1223,12 +1225,13 @@ def _timed(fn, device):
 
 def _counted():
     """{kernel: its wrapper}, each wrapper carrying its launch count (looked
-    up now: a Recorder may stand in for the tridiagonal wrapper)."""
+    up now: a Recorder may stand in for the tridiagonal wrappers)."""
     from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
 
     return {"locate2d": locate.locate2d_cuda,
             "candmath2d": candmath.edge_candidates_math_cuda,
-            "tridiag": tridiag.thomas_cuda}
+            "tridiag": tridiag.thomas_cuda,
+            "tridiag_partitioned": tridiag.partitioned_cuda}
 
 
 def _main_run(rec, fn):
@@ -1535,6 +1538,9 @@ THIN_SLACK = {"float32": 1e-5, "float64": 1e-12}
 # dominant matrix (condition number below 3), so they agree far inside
 # 1e-12 of max |x|.
 TRIDIAG_VS_LIBRARY_MAX = 1e-12
+# The two routes against each other, relative to max |x|: the CPU tests'
+# tolerances against JAX (tests/test_torch_tridiag.py).
+TRIDIAG_ROUTES_MAX = {"float64": 1e-14, "float32": 4 * 2.0**-23}
 
 
 def tridiag_bound_ms(n: int, m: int, double: bool):
@@ -1550,128 +1556,166 @@ def tridiag_bound_ms(n: int, m: int, double: bool):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def partitioned_traffic_bytes(n: int, m: int, double: bool):
+    """Bytes the partitioned route moves for one [n, m] solve, each array
+    counted once for each kernel that touches it: per level, the factor
+    reads d, e and writes R, C, VL, VR; the sweep reads e, R, C and b and
+    writes Y (for m of 1 or 2 one kernel reads d, e, b and writes VL, VR,
+    Y); the assembly reads the separators' d, e, b and their neighbours'
+    Y and spikes and writes D, E, B; the back-fill reads Y, VL, VR and X
+    and writes x; the last level's sequential solve reads d, e, b and
+    writes and reads back c' and x.  Beside the bound, not in it."""
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    plan = tridiag.partition_plan(n)
+    vals = 0
+    for rows, nb in zip(plan, plan[1:]):
+        inner = (tridiag.BLOCK - 1) * nb
+        if m <= 2:
+            vals += 2 * rows + rows * m + 2 * inner + inner * m  # both
+        else:
+            vals += 2 * rows + 4 * inner                    # factor
+            vals += rows + 2 * inner + rows * m + inner * m  # sweep
+        vals += 4 * nb + 3 * nb * m + 2 * nb + nb * m   # assembly
+        vals += inner * m + 2 * inner + nb * m + rows * m  # back-fill
+    last = plan[-1]
+    vals += 2 * last + 6 * last * m
+    return (8 if double else 4) * vals
+
+
+class Solve(NamedTuple):
+    route: str          # "sequential" or "partitioned"
+    diag: object
+    offdiag: object
+    rhs: object
+    x: object
+    kernels: int        # CUDA kernels the solve launched
+
+
 class Recorder:
-    """Within ``with``, keep the arguments and result of every launch of
-    ``tridiag.thomas_cuda`` (the kernel's wrapper, which still counts
-    them), so the kernel can be held against its plain version on exactly
-    what the main path gave it."""
+    """Within ``with``, keep every solve of the two tridiagonal wrappers
+    (``tridiag.thomas_cuda`` and ``tridiag.partitioned_cuda``, which still
+    count them) as a :class:`Solve`, so each can be held against its
+    route's plain version on exactly what the main path gave it."""
+
+    WRAPPERS = {"sequential": "thomas_cuda", "partitioned": "partitioned_cuda"}
+    COUNTERS = ("launches", "kernel_launches")
 
     def __enter__(self):
         from gsl_scattered_interpolation_torch.ops import tridiag
 
-        self.calls, self._orig = [], tridiag.thomas_cuda
+        self.calls, self._swapped = [], []
+        for route, name in self.WRAPPERS.items():
+            orig = getattr(tridiag, name)
 
-        def recording(diag, offdiag, rhs):
-            x = self._orig(diag, offdiag, rhs)
-            self.calls.append((diag, offdiag, rhs, x))
-            return x
+            def recording(diag, offdiag, rhs, *args, _route=route, _orig=orig, _name=name):
+                counted = getattr(tridiag, _name)  # this function, while swapped in
+                before = getattr(counted, "kernel_launches", counted.launches)
+                x = _orig(diag, offdiag, rhs, *args)
+                kernels = getattr(counted, "kernel_launches", counted.launches) - before
+                self.calls.append(Solve(_route, diag, offdiag, rhs, x, kernels))
+                return x
 
-        # The wrapper counts on the module's name, so the count runs on
-        # ``recording`` meanwhile and goes back to the wrapper on exit.
-        recording.launches = self._orig.launches
-        tridiag.thomas_cuda = self._recording = recording
+            # The wrappers count on the module's names, so the counts run
+            # on ``recording`` meanwhile and go back to the wrapper on exit.
+            for c in self.COUNTERS:
+                if hasattr(orig, c):
+                    setattr(recording, c, getattr(orig, c))
+            setattr(tridiag, name, recording)
+            self._swapped.append((name, orig, recording))
         return self
 
     def __exit__(self, *exc):
         from gsl_scattered_interpolation_torch.ops import tridiag
 
-        self._orig.launches = self._recording.launches
-        tridiag.thomas_cuda = self._orig
+        for name, orig, recording in self._swapped:
+            for c in self.COUNTERS:
+                if hasattr(orig, c):
+                    setattr(orig, c, getattr(recording, c))
+            setattr(tridiag, name, orig)
         return False
 
 
-PLAIN_SCRIPT = """
-import sys
-import numpy as np
-import torch
-torch.set_num_threads(1)
-from gsl_scattered_interpolation_torch.ops import tridiag
-a = np.load(sys.argv[1])
-t = __import__("time").perf_counter()
-x = tridiag.thomas_ref(*(torch.from_numpy(a[k]) for k in ("diag", "offdiag", "rhs")))
-np.save(sys.argv[2], x.numpy())
-print(__import__("time").perf_counter() - t)
-"""
+# The sequential route's plain version is a Python loop of ~10 launches
+# per row: held on the card up to this many rows.
+SEQ_PLAIN_MAX_ROWS = 10_000
 
 
-class PlainOnHost:
-    """The plain version of the tridiagonal kernel on a system too long for
-    it on the card (a Python loop of ~10 launches per row): ``add`` saves
-    a system the main path solved, ``start`` solves each in a process of
-    its own on the host's cores, after the last timed configuration so
-    that no host time is measured beside them, and ``check`` holds the
-    kernel's result against it bit for bit."""
-
-    def __init__(self, tmpdir):
-        self.tmpdir, self.systems, self.jobs = tmpdir, [], []
-
-    def add(self, label, diag, offdiag, rhs, x):
-        import os
-
-        src = os.path.join(self.tmpdir, f"{label}_in.npz")
-        out = os.path.join(self.tmpdir, f"{label}_out.npy")
-        np.savez(src, diag=diag.cpu().numpy(), offdiag=offdiag.cpu().numpy(),
-                 rhs=rhs.cpu().numpy())
-        self.systems.append((label, src, out, x.cpu().numpy()))
-
-    def start(self):
-        for label, src, out, x in self.systems:
-            proc = subprocess.Popen([sys.executable, "-c", PLAIN_SCRIPT, src, out],
-                                    stdout=subprocess.PIPE, text=True)
-            self.jobs.append((label, proc, out, x))
-
-    def check(self, timeout: float = 300.0):
-        recs = []
-        for label, proc, out, x in self.jobs:
-            stdout, _ = proc.communicate(timeout=timeout)
-            require(proc.returncode == 0, f"plain tridiag {label} exited {proc.returncode}")
-            ref = np.load(out)
-            recs.append({"system": label, "n": int(x.shape[0]), "m": int(x.shape[1]),
-                         "mismatches": int((ref != x).sum()),
-                         "max_abs_err": float(np.abs(ref - x).max()),
-                         "plain_host_s": float(stdout.strip())})
-        return recs
-
-    def close(self):
-        for _, proc, _, _ in self.jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-
-
-def tridiag_record(diag, offdiag, rhs, label, reps=5, plain=True, library=False):
-    """The tridiagonal kernel against its plain version on the card on one
-    system, with the times of both and the bound; with ``library``, also
-    against ``torch.linalg.solve`` on the dense matrix (built outside the
-    timed calls), timed as the library call."""
+def tridiag_record(solve, label, reps=5, library=False):
+    """One system the main path solved: its result held against the plain
+    version of the route it took, on the card; both routes' kernels timed
+    (CUDA events around back-to-back calls; the partitioned route also
+    queued while the card sleeps, the sequential route so only up to
+    ``SEQ_PLAIN_MAX_ROWS``) and held against their plain versions where
+    these fit (the sequential plain version up to the same); the bound, and the partitioned route's own
+    traffic beside it.  With ``library``, also ``torch.linalg.solve`` on the
+    dense matrix (built outside the timed calls), timed as the library
+    call."""
     import torch
 
     from gsl_scattered_interpolation_torch.ops import tridiag
 
-    got = tridiag.thomas_cuda(diag, offdiag, rhs)
+    diag, offdiag, rhs = solve.diag, solve.offdiag, solve.rhs
     n, m = rhs.shape
+    double = rhs.dtype == torch.float64
     rec = {"system": label, "n": int(n), "m": int(m),
-           "dtype": str(rhs.dtype).split(".")[-1]}
-    if plain:
-        t0 = time.perf_counter()
-        ref = tridiag.thomas_ref(diag, offdiag, rhs)
-        sync(rhs.device.type)
-        rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
-        rec["mismatches"] = int((got != ref).sum())
-        rec["max_abs_err"] = float((got - ref).abs().max())
-    rec["ms"] = time_ms(lambda: tridiag.thomas_cuda(diag, offdiag, rhs), reps)
-    rec["bound_ms"], rec["bound_by"] = tridiag_bound_ms(n, m, rhs.dtype == torch.float64)
+           "dtype": str(rhs.dtype).split(".")[-1], "route": solve.route,
+           "kernels_per_solve": solve.kernels}
+    rec["bound_ms"], rec["bound_by"] = tridiag_bound_ms(n, m, double)
+    traffic = partitioned_traffic_bytes(n, m, double)
+    runs = {"partitioned": (tridiag.partitioned_cuda, tridiag.partitioned_ref),
+            "sequential": (tridiag.thomas_cuda, tridiag.thomas_ref)}
+    results = {}
+    for route, (kernel, plain) in runs.items():
+        r = {}
+        got = kernel(diag, offdiag, rhs)
+        if route == solve.route:
+            r["equals_main_path"] = bool(torch.equal(got, solve.x))
+        if route == "partitioned" or n <= SEQ_PLAIN_MAX_ROWS:
+            t0 = time.perf_counter()
+            ref = plain(diag, offdiag, rhs)
+            sync(rhs.device.type)
+            r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            r["mismatches"] = int((got != ref).sum())
+            r["max_abs_err"] = float((got - ref).abs().max())
+            del ref
+        # One timed call of the sequential route at 10^6 rows (0.24-0.42 s).
+        r["ms"] = time_ms(lambda: kernel(diag, offdiag, rhs),
+                          reps if route == "partitioned" or n <= SEQ_PLAIN_MAX_ROWS else 1)
+        if route == "partitioned" or n <= SEQ_PLAIN_MAX_ROWS:
+            r["device_ms"] = kernel_ms(lambda: kernel(diag, offdiag, rhs), reps)
+        if route == "partitioned":
+            r["traffic_bytes"] = traffic
+            r["traffic_ms"] = 1e3 * traffic / HBM_BYTES_PER_S
+        results[route] = got
+        rec[route] = r
+    scale = float(results["sequential"].abs().max())
+    rec["routes_max_rel_diff"] = float(
+        (results["partitioned"] - results["sequential"]).abs().max()) / scale
+    del results
     if library:
         dense = torch.diag(diag) + torch.diag(offdiag, 1) + torch.diag(offdiag, -1)
         lib = torch.linalg.solve(dense, rhs)
-        rec["library_max_rel_err"] = float((lib - got).abs().max() / got.abs().max())
+        rec["library_max_rel_err"] = float((lib - solve.x).abs().max() / solve.x.abs().max())
         rec["library_ms"] = time_ms(lambda: torch.linalg.solve(dense, rhs), reps)
         del dense, lib
         require(rec["library_max_rel_err"] <= TRIDIAG_VS_LIBRARY_MAX,
                 f"tridiag disagrees with torch.linalg.solve: {rec}")
-    log(f"tridiag kernel: {json.dumps(rec)}")
-    require(rec.get("mismatches", 0) == 0, f"tridiag disagrees with its plain version: {rec}")
+    log(f"tridiag kernels: {json.dumps(rec)}")
+    require(rec[solve.route]["equals_main_path"], f"tridiag: a rerun differs: {rec}")
+    for route in runs:
+        require(rec[route].get("mismatches", 0) == 0,
+                f"tridiag {route} disagrees with its plain version: {rec}")
+    require(rec["routes_max_rel_diff"] <= TRIDIAG_ROUTES_MAX[rec["dtype"]],
+            f"tridiag routes disagree: {rec}")
     return rec
+
+
+def tridiag_profiled_ms(rows):
+    """Device ms of the tridiagonal kernels (both routes) in a profile's
+    {kernel name: (count, ms)}."""
+    return sum(ms for name, (_, ms) in rows.items()
+               if "thomas_kernel" in name or "part_" in name)
 
 
 def gsl_golden(rec, device="cuda"):
@@ -1691,8 +1735,11 @@ def gsl_golden(rec, device="cuda"):
     x, y, q = (np.asarray(g[k]) for k in ("x", "y", "q"))
     kw = dict(device=device, dtype=torch.float64)
     worst = {}
+    solves = []  # (label, Solve) of every tridiagonal solve of the inits
     for kind in KINDS_1D:
-        it = _main_run(rec, lambda: gsi.interp(x, y, kind, **kw))
+        with Recorder() as recd:
+            it = _main_run(rec, lambda: gsi.interp(x, y, kind, **kw))
+        solves += [(f"golden_{kind}", c) for c in recd.calls]
         got = _main_run(rec, lambda: {
             "eval": it.eval(q), "deriv": it.eval_deriv(q), "deriv2": it.eval_deriv2(q),
             "integ": it.eval_integ(x[0], q)})
@@ -1710,13 +1757,19 @@ def gsl_golden(rec, device="cuda"):
     qx = gx[0] + (gx[-1] - gx[0]) * k / 24.0
     qy = gy[0] + (gy[-1] - gy[0]) * ((k * 7) % 25) / 24.0
     for kind in ("bilinear", "bicubic"):
-        it = _main_run(rec, lambda: gsi.interp2d(gx, gy, z, kind, **kw))
+        with Recorder() as recd:
+            it = _main_run(rec, lambda: gsi.interp2d(gx, gy, z, kind, **kw))
+        solves += [(f"golden_{kind}_{i}", c) for i, c in enumerate(recd.calls)]
         for op, fn, tol in (("eval", it.eval, 1e-10), ("deriv_x", it.eval_deriv_x, 1e-9),
                             ("deriv_y", it.eval_deriv_y, 1e-9)):
             v = _main_run(rec, lambda: fn(qx, qy)).cpu().numpy()
             testing.test_abs(v, g[kind][op], tol, f"golden {kind} {op}")
             worst[f"{kind}.{op}"] = float(np.abs(v - np.asarray(g[kind][op])).max())
     rec["max_abs_err"] = worst
+    rec["tridiag_solves"] = len(solves)
+    # Each solve held bit for bit against its route's plain version, on
+    # what the init gave the wrapper.
+    rec["tridiag_kernel"] = [tridiag_record(c, label, library=True) for label, c in solves]
 
 
 def newton_terms_scale(dd, x):
@@ -1732,9 +1785,9 @@ def _qps(fn, n, device):
     return out, {"s": s, "queries_per_s": n / s}
 
 
-def gsl1d_1m(rec, plain, device="cuda"):
+def gsl1d_1m(rec, device="cuda"):
     """10^6 knots in float64: every kind's init (timed; the tridiagonal
-    kernel's device share from a profiled init), eval, eval_deriv and
+    kernels' device share from a profiled init), eval, eval_deriv and
     eval_deriv2 of 10^7 queries and eval_integ of 10^6 intervals, held
     against numpy and scipy on 10^5 sampled queries; the polynomial kind
     at 16 knots."""
@@ -1767,7 +1820,8 @@ def gsl1d_1m(rec, plain, device="cuda"):
         with Recorder() as recd:
             it, r["init_s"] = _main_run(rec, lambda: _timed(
                 lambda: gsi.interp(kx, ky, kind, **f64), device))
-        r["tridiag_main_launches"] = len(recd.calls)
+        r["tridiag_solves"] = len(recd.calls)
+        r["tridiag_kernels_per_solve"] = [c.kernels for c in recd.calls]
         for op in ("eval", "eval_deriv", "eval_deriv2"):
             _, r[op] = _main_run(rec, lambda: _qps(lambda: getattr(it, op)(qk), Q_1D, device))
         ik, r["eval_integ"] = _main_run(rec, lambda: _qps(
@@ -1784,12 +1838,10 @@ def gsl1d_1m(rec, plain, device="cuda"):
             scale = newton_terms_scale(it.dd.cpu().numpy(), kx)
         require(r["knots_max_err"] <= KNOTS_MAX * scale, f"gsl1d {kind} knots: {r}")
         if kind.startswith("cspline"):
-            require(len(recd.calls) == 1, f"{kind}: {len(recd.calls)} tridiagonal launches")
-            plain.add(f"gsl1d_{kind}", *recd.calls[0])
-            r["tridiag_kernel"] = tridiag_record(*recd.calls[0][:3], f"gsl1d_{kind}",
-                                                 reps=3, plain=False)
+            require(len(recd.calls) == 1, f"{kind}: {len(recd.calls)} tridiagonal solves")
+            r["tridiag_kernel"] = tridiag_record(recd.calls[0], f"gsl1d_{kind}", reps=3)
             busy, wall, rows = profile_build(lambda: gsi.interp(kx, ky, kind, **f64))
-            k_ms = sum(ms for name, (_, ms) in rows.items() if "thomas" in name)
+            k_ms = tridiag_profiled_ms(rows)
             r["profiled_init"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
                                   "tridiag_kernel_ms": k_ms,
                                   "tridiag_share": k_ms / wall}
@@ -1826,8 +1878,8 @@ def gsl1d_1m(rec, plain, device="cuda"):
 
 def gsl2d_2k(rec, device="cuda"):
     """A 2,048 x 2,048 grid in float64: bilinear and bicubic init (three
-    launches of m = 2,048 for bicubic, each held against the plain
-    version), eval and all five derivatives of 10^7 queries; bilinear
+    solves of m = 2,048 for bicubic, each held against the plain
+    versions), eval and all five derivatives of 10^7 queries; bilinear
     against scipy, bicubic's nodes and its zx against scipy's natural
     cubic splines."""
     import torch
@@ -1851,7 +1903,8 @@ def gsl2d_2k(rec, device="cuda"):
         with Recorder() as recd:
             it, r["init_s"] = _main_run(rec, lambda: _timed(
                 lambda: gsi.interp2d(gx, gy, z, kind, **f64), device))
-        r["tridiag_main_launches"] = len(recd.calls)
+        r["tridiag_solves"] = len(recd.calls)
+        r["tridiag_kernels_per_solve"] = [c.kernels for c in recd.calls]
         for op in ("eval", "eval_deriv_x", "eval_deriv_y", "eval_deriv_xx",
                    "eval_deriv_xy", "eval_deriv_yy"):
             v, r[op] = _main_run(rec, lambda: _qps(lambda: getattr(it, op)(xq, yq), Q_2D, device))
@@ -1862,12 +1915,12 @@ def gsl2d_2k(rec, device="cuda"):
             r["vs_scipy"] = float(np.abs(it.eval(qn[:, 0], qn[:, 1]).cpu().numpy() - ref).max())
             require(r["vs_scipy"] <= 1e-12 * max(1.0, zmax), f"gsl2d bilinear vs scipy: {r}")
         else:
-            require(len(recd.calls) == 3, f"bicubic: {len(recd.calls)} tridiagonal launches")
+            require(len(recd.calls) == 3, f"bicubic: {len(recd.calls)} tridiagonal solves")
             for label, call in zip(("zx", "zy", "zxy"), recd.calls):
-                recs.append(tridiag_record(*call[:3], f"gsl2d_{label}", reps=5,
+                recs.append(tridiag_record(call, f"gsl2d_{label}", reps=5,
                                            library=label == "zx"))
             busy, wall, rows = profile_build(lambda: gsi.interp2d(gx, gy, z, kind, **f64))
-            k_ms = sum(ms for name, (_, ms) in rows.items() if "thomas" in name)
+            k_ms = tridiag_profiled_ms(rows)
             r["profiled_init"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
                                   "tridiag_kernel_ms": k_ms, "tridiag_share": k_ms / wall}
             ii = rng.choice(N_2D, 64, replace=False)
@@ -2138,80 +2191,84 @@ def alpha_ball_61k(rec, device="cuda"):
 
 
 def phase_structured(device="cuda"):
-    """The structured phase: each configuration counted from zero.  The
-    tridiagonal kernel is held against its plain version on every system
-    the main path gave it: on the card for the grids, and for the 10^6-row
-    splines in processes on the host, started after the last configuration
-    so that they share the host with no timed step.  Returns {name:
+    """The structured phase: each configuration counted from zero.  Every
+    tridiagonal system the main path solved is held against the plain
+    version of its route on the card, both routes timed.  Returns {name:
     record}."""
-    import tempfile
-
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        plain = PlainOnHost(tmp)
-        try:
-            out["gsl_golden"] = _config("gsl_golden", device,
-                                        functools.partial(gsl_golden, device=device))
-            out["gsl1d_1m"] = _config("gsl1d_1m", device,
-                                      functools.partial(gsl1d_1m, plain=plain, device=device))
-            for name, body in (("gsl2d_2k", gsl2d_2k), ("boundary_100k", boundary_100k),
-                               ("geometry_200k", geometry_200k), ("thin_200k", thin_200k),
-                               ("alpha_ball_61k", alpha_ball_61k)):
-                out[name] = _config(name, device, functools.partial(body, device=device))
-            t0 = time.perf_counter()
-            plain.start()
-            out["tridiag_plain_on_host"] = plain.check()
-            out["plain_on_host_s"] = time.perf_counter() - t0
-            log(f"tridiag plain on host: {json.dumps(out['tridiag_plain_on_host'])} "
-                f"(waited {out['plain_on_host_s']:.2f} s)")
-        finally:
-            plain.close()
-    for r in out["tridiag_plain_on_host"]:
-        require(r["mismatches"] == 0, f"tridiag disagrees with its plain version: {r}")
-    require(out["gsl1d_1m"]["cspline"]["tridiag_main_launches"] == 1
-            and out["gsl1d_1m"]["cspline_periodic"]["tridiag_main_launches"] == 1,
-            "a gsl1d spline init did not launch tridiag once")
-    require(out["gsl2d_2k"]["bicubic"]["tridiag_main_launches"] == 3,
-            "the bicubic init did not launch tridiag three times")
+    for name, body in (("gsl_golden", gsl_golden), ("gsl1d_1m", gsl1d_1m),
+                       ("gsl2d_2k", gsl2d_2k), ("boundary_100k", boundary_100k),
+                       ("geometry_200k", geometry_200k), ("thin_200k", thin_200k),
+                       ("alpha_ball_61k", alpha_ball_61k)):
+        out[name] = _config(name, device, functools.partial(body, device=device))
+    require(out["gsl1d_1m"]["cspline"]["tridiag_solves"] == 1
+            and out["gsl1d_1m"]["cspline_periodic"]["tridiag_solves"] == 1,
+            "a gsl1d spline init did not solve once")
+    require(out["gsl2d_2k"]["bicubic"]["tridiag_solves"] == 3,
+            "the bicubic init did not solve three times")
+    # cspline 1, cspline_periodic 1, bicubic 3 on the golden file's knots.
+    require(out["gsl_golden"]["tridiag_solves"] == 5,
+            f"gsl_golden: {out['gsl_golden']['tridiag_solves']} tridiagonal solves")
     require(out["boundary_100k"]["kernel_launches"] == 1, "boundary: locate2d launches")
     return out
 
 
-def tridiag_summary(pcfg, host_checks):
-    """The tridiagonal kernel's record of the kernels line: timed at the
-    first bicubic derivative grid (n = 2,046, m = 2,048, float64), with the
-    10^6-row spline systems beside it."""
-    grids = pcfg["gsl2d_2k"]["tridiag_kernel"]
-    first = grids[0]
-    one_d = {k: pcfg["gsl1d_1m"][k]["tridiag_kernel"] for k in ("cspline", "cspline_periodic")}
-    return {
-        "name": "tridiag",
+def tridiag_summary(pcfg):
+    """The two tridiagonal records of the kernels line, one per route, each
+    with every system the structured phase solved (gsl_golden's five, the
+    two 10^6-row splines, the three bicubic derivative grids) under
+    ``systems`` and both routes side by side on each under ``routes``.
+    Each route is headlined at a system its main path gave it: the
+    partitioned one at the cspline system (n = 999,998, m = 1, float64),
+    the sequential one at gsl_golden's largest (the 10^6-row and grid
+    systems, which the main path sends to the partitioned route, keep the
+    sequential route's times under ``routes`` as the comparison)."""
+    one_d = [pcfg["gsl1d_1m"][k]["tridiag_kernel"] for k in ("cspline", "cspline_periodic")]
+    golden = pcfg["gsl_golden"]["tridiag_kernel"]
+    systems = golden + one_d + pcfg["gsl2d_2k"]["tridiag_kernel"]
+    seq_main = max((r for r in systems if r["route"] == "sequential"),
+                   key=lambda r: r["n"] * r["m"])
+    routes = {
+        route: [{"system": r["system"], "main_path": r["route"] == route,
+                 "bound_ms": r["bound_ms"],
+                 **{k: r[route][k] for k in ("ms", "device_ms", "plain_ms", "mismatches",
+                                              "traffic_ms") if k in r[route]}}
+                for r in systems]
+        for route in ("partitioned", "sequential")}
+    by_path = {k: {"tridiag": r["tridiag_launches"],
+                   "tridiag_partitioned": r["tridiag_partitioned_launches"]}
+               for k, r in pcfg.items()}
+    checked = [r[route] for r in systems for route in ("partitioned", "sequential")
+               if "mismatches" in r[route]]
+    common = {
         "route": "cuda",
         "source": "gsl_scattered_interpolation_torch/kernels/csrc/tridiag.cu",
         # Not a Pallas kernel: JAX's lax.scan Thomas sweeps.
         "replaces": "gsl_scattered_interpolation_tpu/ops/tridiag.py:16",
-        # The timed inits' launches: one per cspline and cspline_periodic
-        # init, three per bicubic init; launches_by_path has each
-        # configuration's main-path runs.
-        "launches": sum(r["tridiag_main_launches"] for name in ("gsl1d_1m", "gsl2d_2k")
-                        for r in pcfg[name].values()
-                        if isinstance(r, dict) and "tridiag_main_launches" in r),
-        "launches_by_path": {k: r["tridiag_launches"] for k, r in pcfg.items()},
-        "max_abs_err": max([r["max_abs_err"] for r in (*grids, *host_checks)]),
-        "mismatches": sum(r["mismatches"] for r in (*grids, *host_checks)),
-        "ms": first["ms"],
-        "plain_ms": first["plain_ms"],
-        "bound_ms": first["bound_ms"],
-        "bound_by": first["bound_by"],
-        # torch.linalg.solve on the dense matrix at this shape.  None at the
-        # 10^6-row systems, whose dense matrix would take 8 TB.
-        "library_ms": first["library_ms"],
-        "library_max_rel_err": first["library_max_rel_err"],
-        "shape": f"n={first['n']} m={first['m']} {first['dtype']}",
-        "grids": grids,
-        "splines_1m": one_d,
-        "splines_1m_plain_on_host": host_checks,
+        "max_abs_err": max(r["max_abs_err"] for r in checked),
+        "mismatches": sum(r["mismatches"] for r in checked),
+        # Solves (wrapper calls) per configuration's main-path runs; the
+        # CUDA kernels per solve are in each system's kernels_per_solve.
+        "launches_by_path": by_path,
+        "routes": routes,
+        "systems": systems,
     }
+
+    def headline(name, r, route, launches):
+        return {"name": name, **common, "launches": launches,
+                "shape": f"n={r['n']} m={r['m']} {r['dtype']}",
+                **{k: r[route][k] for k in ("ms", "device_ms", "plain_ms") if k in r[route]},
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                # torch.linalg.solve on the dense matrix at the golden
+                # systems; none at the 10^6-row systems, whose dense matrix
+                # would take 8 TB.
+                "library_ms": r.get("library_ms"),
+                "library_max_rel_err": r.get("library_max_rel_err")}
+
+    return [headline("tridiag", seq_main, "sequential",
+                     sum(v["tridiag"] for v in by_path.values())),
+            headline("tridiag_partitioned", one_d[0], "partitioned",
+                     sum(v["tridiag_partitioned"] for v in by_path.values()))]
 
 
 def main() -> int:
@@ -2348,14 +2405,13 @@ def main() -> int:
     prbf = phase_rbf()
     log(f"phase RBF: {time.perf_counter() - t0:.2f} s")
 
-    # 11. The structured phase: the GSL 1D and 2D family through the
-    # tridiagonal kernel, the locate kernel's boundary check at T ~ 101,000,
+    # 11. The structured phase: the GSL 1D and 2D family through both
+    # tridiagonal routes, the locate kernel's boundary check at T ~ 101,000,
     # and the geometry consumers (hull, Voronoi, serialize, thinning, alpha
     # shapes), each counted from zero.
     t0 = time.perf_counter()
-    pst = phase_structured()
+    pcfg = phase_structured()
     log(f"phase structured: {time.perf_counter() - t0:.2f} s")
-    pcfg = {k: r for k, r in pst.items() if isinstance(r, dict)}
 
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
@@ -2419,12 +2475,14 @@ def main() -> int:
         "float64": {k: c64[k] for k in TIMES},
         "compact_rows_float32": [{"rows": r["rows"], **{k: r[k] for k in TIMES}}
                                  for r in compact_recs],
-    }, tridiag_summary(pcfg, pst["tridiag_plain_on_host"])]
+    }, *tridiag_summary(pcfg)]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} was not launched on its main paths")
     log(f"at-scale summary: {json.dumps({'at_scale': at_scale, 'crossover': cross})}")
     log(f"1M summary: {json.dumps(b1m)}")
     log(f"3D summary: {json.dumps(p3d)}")
     log(f"RBF summary: {json.dumps(prbf)}")
-    log(f"structured summary: {json.dumps(pst)}")
+    log(f"structured summary: {json.dumps(pcfg)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

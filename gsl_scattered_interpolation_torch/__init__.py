@@ -24,8 +24,8 @@ The JAX package's ``setup_x64`` has no counterpart: each entry point takes
 ``dtype=``.
 """
 
+from .version import __version__  # noqa: F401
+from . import models, ops, utils  # noqa: F401
 from .models.interp1d import Interp1D, Spline1D, interp, spline  # noqa: F401
 from .models.interp2d import Interp2D, Spline2D, interp2d, spline2d  # noqa: F401
 from .models.scattered import ScatteredInterp  # noqa: F401
-
-__version__ = "0.1.0"

@@ -36,4 +36,7 @@ def root5_eps(dtype) -> float:
     return float(eps(dtype) ** 0.2)
 
 
-DBL_EPSILON = eps(np.float64)  # 2.220446049250313e-16
+# Canonical double values, for tests asserting GSL parity.
+DBL_EPSILON = eps(np.float64)            # 2.220446049250313e-16
+SQRT_DBL_EPSILON = sqrt_eps(np.float64)  # 1.4901161193847656e-08
+ROOT5_DBL_EPSILON = root5_eps(np.float64)

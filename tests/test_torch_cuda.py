@@ -453,9 +453,78 @@ def test_tridiag_wrapper_checks_inputs(cuda):
     assert tridiag.thomas_cuda(d, e, b[:, :0]).shape == (5, 0)
 
 
+def _spline_system(n, m, dtype, device, seed):
+    """A natural cubic spline's system on knot gaps in [0.5, 1.5], m
+    right-hand sides."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.rand(n + 1, generator=gen, device=device, dtype=dtype) + 0.5
+    d = (2.0 * (h[1:] + h[:-1])).contiguous()
+    e = h[1:-1].contiguous()
+    b = torch.randn(n, m, generator=gen, device=device, dtype=dtype)
+    return d, e, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(4096, 1), (100_003, 1), (2046, 2048), (100_003, 2)])
+def test_partitioned_kernel_equals_plain(cuda, dtype, n, m):
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    d, e, b = _spline_system(n, m, dtype, cuda, n + m)
+    before = tridiag.partitioned_cuda.launches
+    kernels = tridiag.partitioned_cuda.kernel_launches
+    got = tridiag.partitioned_cuda(d, e, b)
+    torch.cuda.synchronize()
+    assert tridiag.partitioned_cuda.launches == before + 1
+    assert tridiag.partitioned_cuda.kernel_launches == kernels + tridiag.kernels_per_solve(n, m)
+    assert got.shape == (n, m) and got.dtype == dtype
+    torch.testing.assert_close(got, tridiag.partitioned_ref(d, e, b), rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), tridiag.partitioned_ref(d.cpu(), e.cpu(), b.cpu()),
+                               rtol=0, atol=0)
+    # and the sequential route's solution, within the CPU tests' tolerance
+    seq = tridiag.thomas_cuda(d, e, b)
+    tol = 1e-14 if dtype == torch.float64 else 4 * torch.finfo(dtype).eps
+    assert float((got - seq).abs().max()) <= tol * float(seq.abs().max())
+
+
+# Level boundaries of BLOCK = 32: one row past a level, a tile (32 blocks)
+# and one more block, two and three levels with ragged tails.
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [33, 1024, 1057, 32 * 32 * 32 + 1, 70_001])
+def test_partitioned_levels_equal_plain(cuda, n, m):
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    for dtype in (torch.float32, torch.float64):
+        d, e, b = _spline_system(n, m, dtype, cuda, 7 * n + m)
+        got = tridiag.partitioned_cuda(d, e, b)
+        torch.testing.assert_close(got, tridiag.partitioned_ref(d, e, b), rtol=0, atol=0)
+
+
+def test_partitioned_wrapper_checks_inputs(cuda):
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    d = torch.ones(500, device=cuda) * 4
+    e = torch.ones(499, device=cuda)
+    b = torch.ones(500, 2, device=cuda)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.partitioned_cuda(d.double(), e, b)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.partitioned_cuda(d, e[:3], b)
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.partitioned_cuda(d, e, b[:, 0])
+    with pytest.raises(errors.InvalidArgumentError):
+        tridiag.partitioned_cuda(d, e, torch.ones(2, 500, device=cuda).T)
+    assert tridiag.partitioned_cuda(d, e, b[:, :0]).shape == (500, 0)
+
+
+def _solves():
+    """Tridiagonal solves launched on the card so far, by either route."""
+    from gsl_scattered_interpolation_torch.ops import tridiag
+
+    return tridiag.thomas_cuda.launches + tridiag.partitioned_cuda.launches
+
+
 def test_interp1d_on_card_matches_cpu(cuda):
     from gsl_scattered_interpolation_torch.models import interp1d
-    from gsl_scattered_interpolation_torch.ops import tridiag
 
     rng = np.random.default_rng(47)
     for kind in sorted(interp1d.TYPES):
@@ -464,10 +533,10 @@ def test_interp1d_on_card_matches_cpu(cuda):
         y = rng.normal(size=n)
         if kind.endswith("periodic"):
             y[-1] = y[0]
-        before = tridiag.thomas_cuda.launches
+        before = _solves()
         ours = interp1d.Interp1D(x, y, kind, device=cuda, dtype=torch.float64)
         ref = interp1d.Interp1D(x, y, kind, device="cpu", dtype=torch.float64)
-        assert tridiag.thomas_cuda.launches == before + (kind.startswith("cspline"))
+        assert _solves() == before + (kind.startswith("cspline"))
         q = np.concatenate([rng.uniform(x[0] - 1, x[-1] + 1, 20_000), x])
         for op in ("eval", "eval_deriv", "eval_deriv2"):
             a, b = getattr(ours, op)(q).cpu(), getattr(ref, op)(q)
@@ -488,7 +557,6 @@ def test_interp1d_on_card_matches_cpu(cuda):
 
 def test_interp2d_on_card_matches_cpu(cuda):
     from gsl_scattered_interpolation_torch.models import interp2d
-    from gsl_scattered_interpolation_torch.ops import tridiag
 
     rng = np.random.default_rng(48)
     x = np.cumsum(rng.uniform(0.5, 1.5, 200))
@@ -497,10 +565,10 @@ def test_interp2d_on_card_matches_cpu(cuda):
     xq = rng.uniform(x[0] - 1, x[-1] + 1, 50_000)
     yq = rng.uniform(y[0] - 1, y[-1] + 1, 50_000)
     for kind in ("bilinear", "bicubic"):
-        before = tridiag.thomas_cuda.launches
+        before = _solves()
         ours = interp2d.Interp2D(x, y, z, kind, device=cuda, dtype=torch.float64)
         ref = interp2d.Interp2D(x, y, z, kind, device="cpu", dtype=torch.float64)
-        assert tridiag.thomas_cuda.launches == before + 3 * (kind == "bicubic")
+        assert _solves() == before + 3 * (kind == "bicubic")
         for op in ("eval", "eval_extrap", "eval_deriv_x", "eval_deriv_y", "eval_deriv_xx",
                    "eval_deriv_xy", "eval_deriv_yy"):
             a, b = getattr(ours, op)(xq, yq).cpu(), getattr(ref, op)(xq, yq)

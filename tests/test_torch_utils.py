@@ -10,26 +10,40 @@
 * ``utils/integrity``: check_structure and check_delaunay give JAX's
   verdicts on the trees of tests/test_host_tree.py:88-141 and on corrupted
   copies; output_triangulation writes byte-equal files;
-* ``utils/errors.strict_check``, ``utils/config`` and ``utils/profiling``.
+* ``utils/errors.strict_check``, ``utils/config`` and ``utils/profiling``;
+* the package layout: every module that the JAX package's
+  ``models/__init__.py`` and ``utils/__init__.py`` import resolves as an
+  attribute of the port's subpackage after a bare ``import`` of the port,
+  and ``utils/machine``'s constants and the ``version`` module equal JAX's.
 """
 
+import ast
 import json
 import logging
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import gsl_scattered_interpolation_tpu as jgsi
+from gsl_scattered_interpolation_tpu import version as jversion
 from gsl_scattered_interpolation_tpu.models import host_tree as jht
 from gsl_scattered_interpolation_tpu.ops import geometry as jgeom
 from gsl_scattered_interpolation_tpu.utils import config as jconfig
 from gsl_scattered_interpolation_tpu.utils import datasets as jdatasets
 from gsl_scattered_interpolation_tpu.utils import integrity as jintegrity
+from gsl_scattered_interpolation_tpu.utils import machine as jmachine
 
+from gsl_scattered_interpolation_torch import version
 from gsl_scattered_interpolation_torch.models import host_tree
 from gsl_scattered_interpolation_torch.ops import geometry
-from gsl_scattered_interpolation_torch.utils import config, errors, integrity, profiling
+from gsl_scattered_interpolation_torch.utils import config, errors, integrity, machine, profiling
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -251,3 +265,57 @@ def test_timer_and_trace(tmp_path):
         torch.mm(torch.ones(16, 16), torch.ones(16, 16))
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+
+
+def _reference_submodules(subpackage):
+    """The modules the JAX package's ``<subpackage>/__init__.py`` imports."""
+    path = REPO / "gsl_scattered_interpolation_tpu" / subpackage / "__init__.py"
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level == 1 and node.module is None:
+            names += [a.name for a in node.names]
+    return names
+
+
+SUBMODULES = [(sub, name) for sub in ("models", "utils") for name in _reference_submodules(sub)]
+
+
+@pytest.fixture(scope="module")
+def port_attributes():
+    """{(subpackage, name): module name} as a fresh process sees them after
+    nothing but ``import gsl_scattered_interpolation_torch as gsi``: in
+    this process other imports have already set the attributes."""
+    script = (
+        "import json, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import gsl_scattered_interpolation_torch as gsi\n"
+        f"pairs = {SUBMODULES!r}\n"
+        "print(json.dumps({f'{s}.{n}': getattr(getattr(getattr(gsi, s), n, None), "
+        "'__name__', None) for s, n in pairs}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_reference_exposes_submodules():
+    assert len(SUBMODULES) == 16
+    for sub, name in SUBMODULES:
+        assert getattr(getattr(jgsi, sub), name).__name__ == (
+            f"gsl_scattered_interpolation_tpu.{sub}.{name}")
+
+
+@pytest.mark.parametrize("sub,name", SUBMODULES, ids=lambda v: v)
+def test_port_exposes_the_reference_submodules(port_attributes, sub, name):
+    assert port_attributes[f"{sub}.{name}"] == f"gsl_scattered_interpolation_torch.{sub}.{name}"
+
+
+def test_machine_constants_and_version_match_jax():
+    for const in ("DBL_EPSILON", "SQRT_DBL_EPSILON", "ROOT5_DBL_EPSILON"):
+        assert getattr(machine, const) == getattr(jmachine, const), const
+    assert machine.SQRT_DBL_EPSILON == 1.4901161193847656e-08
+    assert version.__version__ == jversion.__version__ == jgsi.__version__
+    import gsl_scattered_interpolation_torch as gsi
+
+    assert gsi.__version__ == version.__version__
