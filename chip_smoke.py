@@ -7,8 +7,11 @@ Usage, from the root of a checkout, on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from the sources in the checkout and
 holds each kernel against its plain PyTorch version on the card: the locate
-kernel on two triangulations, the flip-candidate kernel at three states of
-a 200,000-site device build in float32 and float64.  It then runs that
+kernel's leaves, and the leaves and weights of the eval's route, to the
+bit, on two triangulations (and in the structured phase at bench.py's
+boundary check and at the largest round of thin_200k's float32 rounds),
+with its SASS hot loop read per pair; the flip-candidate kernel at three
+states of a 200,000-site device build in float32 and float64.  It then runs that
 device build end to end and checks it (structure, local Delaunay, agreement
 with scipy), and drives both main paths at the size of bench.py's headline,
 each with the launch counters set to 0 just before it: ``ScatteredInterp``
@@ -107,6 +110,7 @@ F32_OPS_PER_S = 33.5e12
 F64_OPS_PER_S = 17e12
 HBM_BYTES_PER_S = 3.35e12
 LOCATE_OPS_PER_PAIR = 13   # 4 mul, 4 add, 2 sub, 2 min, 1 compare
+LOCATE_WEIGHT_OPS = 12    # per query: 2 sub, 4 mul, 5 add, 1 sub (its weights)
 SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: kernel_ms
 
 
@@ -210,11 +214,18 @@ def kernel_ms(fn, reps: int = 20) -> float:
     return ev[1].elapsed_time(ev[2]) / reps
 
 
-def locate_bound_ms(n_q: int, n_t: int):
-    """(least ms, "operations" or "bytes") for the locate of n_q x n_t."""
-    ops_ms = 1e3 * LOCATE_OPS_PER_PAIR * n_q * n_t / F32_OPS_PER_S
+def locate_bound_ms(n_q: int, n_t: int, weights: bool = False):
+    """(least ms, "operations" or "bytes") for the locate of n_q x n_t,
+    and with ``weights`` for the weights of each query's leaf as well."""
+    ops = LOCATE_OPS_PER_PAIR * n_q * n_t
     # queries in (8 B) and leaves out (4 B) once, the tables (24 B) once
-    bytes_ms = 1e3 * (12 * n_q + 24 * n_t) / HBM_BYTES_PER_S
+    n_bytes = 12 * n_q + 24 * n_t
+    if weights:
+        # Per query: its leaf's affine row in (32 B), its weights out (12 B).
+        ops += LOCATE_WEIGHT_OPS * n_q
+        n_bytes += 44 * n_q
+    ops_ms = 1e3 * ops / F32_OPS_PER_S
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -239,51 +250,234 @@ def candmath_bound_ms(n_rows: int, double: bool):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def sass_counts(name: str) -> dict:
-    """Instructions of each kernel instance in the built library of
-    ``csrc/<name>.cu``, by opcode, from ``cuobjdump -sass``: what the
-    compiled kernel issues per thread, beside the count of its bound."""
+def sass_listing(name: str) -> dict:
+    """{function: [(address, opcode, operands)]} of the built library of
+    ``csrc/<name>.cu``, from ``cuobjdump -sass``."""
     import os
-    import re
 
     from gsl_scattered_interpolation_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run(
+    return parse_sass(subprocess.run(
         [tool, "-sass", str(build.library_path(name))],
         capture_output=True, text=True, timeout=120, check=True,
-    ).stdout
-    counts, fn = {}, None
+    ).stdout)
+
+
+def parse_sass(sass: str) -> dict:
+    """{function: [(address, opcode, operands)]} of ``cuobjdump -sass``'s
+    output."""
+    import re
+
+    out, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*kernelI([fd])E", line)
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = {"f": "float", "d": "double"}[m.group(1)]
-            counts[fn] = {}
+            fn = m.group(1)
+            out[fn] = []
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)([^;]*);", line)
         if fn and m:
-            op = m.group(1)
-            counts[fn][op] = counts[fn].get(op, 0) + 1
+            out[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return out
+
+
+def sass_counts(name: str) -> dict:
+    """Instructions of each kernel instance of the candidate kernel
+    (``kernel<float>``, ``kernel<double>``), by opcode: what the compiled
+    kernel issues per thread, beside the count of its bound."""
+    import re
+
+    counts = {}
+    for fn, instrs in sass_listing(name).items():
+        m = re.search(r"kernelI([fd])E", fn)
+        if m:
+            ops = counts[{"f": "float", "d": "double"}[m.group(1)]] = {}
+            for _, op, _ in instrs:
+                ops[op] = ops.get(op, 0) + 1
     return counts
+
+
+def sass_inner_loop(instrs) -> dict:
+    """The hot loop of a kernel's SASS: of the innermost loops (a backward
+    branch and its target, with no other loop inside), the one with the
+    most FMUL.  At 4 FMUL per (query, triangle) pair of the locate kernel,
+    its instructions per pair, beside the bound's 13."""
+    import re
+
+    loops = []
+    for addr, op, rest in instrs:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any((a, b) != (c, d) and a <= c and d <= b for c, d in loops)]
+    best = None
+    for a, b in inner:
+        ops = {}
+        for addr, op, _ in instrs:
+            if a <= addr <= b:
+                ops[op] = ops.get(op, 0) + 1
+        if ops.get("FMUL", 0) and (best is None or ops["FMUL"] > best["ops"]["FMUL"]):
+            best = {"ops": ops, "instructions": sum(ops.values())}
+    require(best is not None, "no loop with FMUL in the SASS")
+    pairs = best["ops"]["FMUL"] / 4
+    best["pairs"] = pairs
+    best["per_pair"] = best["instructions"] / pairs
+    best["per_pair_by_op"] = {op: n / pairs for op, n in sorted(best["ops"].items())}
+    return best
+
+
+def locate_sass() -> dict:
+    """{kernel instance: {instructions, its hot loop per pair}} of the
+    locate kernel, logged."""
+    out = {}
+    for fn, instrs in sass_listing("locate2d").items():
+        rec = {"instructions": len(instrs)}
+        if "locate2d_kernel" in fn:
+            rec["inner_loop"] = sass_inner_loop(instrs)
+        out[fn] = rec
+        log(f"sass locate2d {fn}: {json.dumps(rec)}")
+    require(any("inner_loop" in r for r in out.values()), f"no sweep kernel: {sorted(out)}")
+    return out
+
+
+def locate_call_record(call):
+    """One call of a locate wrapper, counted and profiled: the wrapper
+    calls and CUDA kernels that its counters saw, the sweep and merge
+    kernels that ``torch.profiler`` saw (which must agree with them), the
+    sweep's grid (its y extent is the number of slices) and each kernel's
+    device ms."""
+    from gsl_scattered_interpolation_torch.ops import locate
+
+    counted = locate.locate2d_cuda
+    calls, kernels = counted.launches, counted.kernel_launches
+    events, _ = device_events(call)
+    calls, kernels = counted.launches - calls, counted.kernel_launches - kernels
+    sweeps = [e for e in events if "locate2d_kernel" in e["name"]]
+    merges = [e for e in events if "locate2d_merge" in e["name"]]
+    require(calls == 1 and len(sweeps) == 1,
+            f"one call: {calls} wrapper calls, {len(sweeps)} sweep kernels; "
+            f"the profiler saw {sorted(e['name'][:60] for e in events)}")
+    grid = [int(n) for n in sweeps[0]["args"]["grid"]]
+    rec = {"kernels_per_call": kernels, "sweep_kernels": len(sweeps),
+           "merge_kernels": len(merges), "slices": grid[1], "sweep_grid": grid,
+           "sweep_profiled_ms": float(sweeps[0]["dur"]) / 1e3,
+           "merge_profiled_ms": sum(float(e["dur"]) for e in merges) / 1e3}
+    require(kernels == len(sweeps) + len(merges) and len(merges) == (grid[1] > 1),
+            f"the counter and the profiler disagree: {rec}")
+    return rec
+
+
+def locate_calls_main(paths) -> int:
+    """In a fresh process: :func:`locate_call_record` of the leaf call and
+    the weights call of the locate wrapper on the inputs saved at each of
+    ``paths`` (the arguments ``locate_dense_kernel`` and
+    ``locate_weights_kernel`` pass it), printed as one JSON line."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.ops import locate
+
+    out = []
+    for path in paths:
+        q, g, b, centre, affine = (t.cuda() for t in torch.load(path))
+        out.append({
+            "leaf_call": locate_call_record(lambda: locate.locate2d_cuda(q, g, b, centre)),
+            "weights_call": locate_call_record(
+                lambda: locate.locate2d_cuda(q, g, b, centre, affine=affine)),
+        })
+    print(json.dumps(out))
+    return 0
+
+
+class LocateCalls:
+    """The inputs of each locate check, saved for :meth:`profile`, which
+    profiles one call of each route on them in a fresh process and adds
+    the records to the check's.  Late in this script ``torch.profiler``
+    loses device records: it saw no kernel, or only the merge pass, of a
+    locate call that the counter and the results show ran, and then none
+    of a lone elementwise kernel.  In a fresh process it saw every one."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_locate_")
+        self.pending = []
+
+    def save(self, tri, q, rec):
+        import os
+
+        import torch
+
+        centre, g_pack, b_pack = tri.locate_tables
+        path = os.path.join(self.dir, f"call{len(self.pending)}.pt")
+        torch.save([t.cpu() for t in (q, g_pack, b_pack, centre, tri.affine)], path)
+        self.pending.append((path, rec))
+
+    def profile(self):
+        import os
+        import shutil
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        paths = [p for p, _ in self.pending]
+        out = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys, chip_smoke; sys.exit(chip_smoke.locate_calls_main({paths!r}))"],
+            capture_output=True, text=True, timeout=600, cwd=here,
+            env={**os.environ, "PYTHONPATH": here})
+        shutil.rmtree(self.dir, ignore_errors=True)
+        require(out.returncode == 0, f"the locate call records failed:\n{out.stderr[-3000:]}")
+        for (_, rec), calls in zip(self.pending, json.loads(out.stdout.strip().splitlines()[-1])):
+            rec.update(calls, kernels_per_call=calls["weights_call"]["kernels_per_call"],
+                       slices=calls["weights_call"]["slices"])
+            log(f"locate2d calls at B={rec['B']} T={rec['T']}: {json.dumps(calls)}")
+            require(calls["leaf_call"]["kernels_per_call"] == rec["kernels_per_call"],
+                    f"the two routes launched different kernels: {rec}")
+        self.pending = []
+
+
+LOCATE_CALLS = None  # a LocateCalls while main() runs
 
 
 def check_locate(tri, q):
     """Kernel against its plain version on the same tables and queries,
-    with the times of both and the kernel's bound."""
+    through the two wrappers the main paths call: the leaves
+    (``locate_dense_kernel``, the boundary check's route) and the leaves
+    and weights (``locate_weights_kernel``, the eval's route), each to the
+    bit, the kernel centring the raw queries.  With the times of both
+    routes and of their plain versions and the bound; the kernels, slices
+    and device ms of one call of each, counted and profiled, join the
+    record when ``LOCATE_CALLS.profile()`` runs."""
+    from gsl_scattered_interpolation_torch.models import device_tri
     from gsl_scattered_interpolation_torch.ops import locate
 
     centre, g_pack, b_pack = locate.pack_tables(tri)
     qc = (q - centre).contiguous()
     ref = locate.locate2d_ref(qc, g_pack, b_pack)
-    got = locate.locate2d_cuda(qc, g_pack, b_pack)
+    got = locate.locate_dense_kernel(tri, q)
+    leaf, w = locate.locate_weights_kernel(tri, q)
+    w_ref = device_tri._weights(tri, ref, q)
     diff = (got.long() - ref.long()).abs()
     rec = {"B": int(q.shape[0]), "T": int(tri.n_tris)}
-    rec["mismatches"] = int((diff != 0).sum())
+    rec["mismatches"] = int((diff != 0).sum()) + int((leaf != ref).sum())
     rec["max_abs_err"] = float(diff.max())
-    rec["ms"] = time_ms(lambda: locate.locate2d_cuda(qc, g_pack, b_pack), 10)
-    rec["device_ms"] = kernel_ms(lambda: locate.locate2d_cuda(qc, g_pack, b_pack), 10)
-    rec["plain_ms"] = time_ms(lambda: locate.locate2d_ref(qc, g_pack, b_pack), 2)
+    rec["weight_mismatches"] = int((w != w_ref).any(dim=1).sum())
+    rec["weights_max_abs_err"] = float((w - w_ref).abs().max())
+    rec["ms"] = time_ms(lambda: locate.locate_dense_kernel(tri, q), 10)
+    rec["device_ms"] = kernel_ms(lambda: locate.locate_dense_kernel(tri, q), 10)
+    rec["plain_ms"] = time_ms(lambda: locate.locate2d_ref(
+        (q - centre).contiguous(), g_pack, b_pack), 2)
+    rec["weights_ms"] = time_ms(lambda: locate.locate_weights_kernel(tri, q), 10)
+    rec["weights_device_ms"] = kernel_ms(lambda: locate.locate_weights_kernel(tri, q), 10)
+    rec["weights_plain_ms"] = time_ms(lambda: device_tri._weights(
+        tri, locate.locate2d_ref((q - centre).contiguous(), g_pack, b_pack), q), 2)
     rec["bound_ms"], rec["bound_by"] = locate_bound_ms(q.shape[0], tri.n_tris)
+    rec["weights_bound_ms"], _ = locate_bound_ms(q.shape[0], tri.n_tris, weights=True)
+    log(f"locate2d kernel vs plain: {json.dumps(rec)}")
+    require(rec["mismatches"] == 0 and rec["weight_mismatches"] == 0,
+            f"locate2d disagrees with its plain version: {rec}")
+    if LOCATE_CALLS is not None:
+        LOCATE_CALLS.save(tri, q, rec)
     return rec
 
 
@@ -453,13 +647,12 @@ def check_candmath_compact(sites, device="cuda"):
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def profile_build(fn):
-    """Device time of ``fn()`` by kernel name, from ``torch.profiler``:
-    (busy ms, wall ms, {name: (launches, ms)}).  Busy and wall time are of
-    the same run, so their ratio is its device idle share; the wall time
-    carries the profiler's own cost on the host.  The device activities
-    are read from the exported trace: ``key_averages`` took 70 s over the
-    435,000 launches of a 100,000-site 3D build."""
+def device_events(fn):
+    """(the device activities of ``fn()`` as trace events, wall ms), from
+    ``torch.profiler``.  A kernel's event carries its name, ``dur`` (us)
+    and, in ``args``, its ``grid`` and ``block``.  The activities are read
+    from the exported trace: ``key_averages`` took 70 s over the 435,000
+    launches of a 100,000-site 3D build."""
     import os
     import tempfile
 
@@ -480,12 +673,21 @@ def profile_build(fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    log(f"profiler trace: {len(events)} events read in {time.perf_counter() - t0:.2f} s")
+    return [e for e in events if e.get("ph") == "X"
+            and str(e.get("cat", "")).lower() in DEVICE_CATS], wall_ms
+
+
+def profile_build(fn):
+    """Device time of ``fn()`` by kernel name, from ``torch.profiler``:
+    (busy ms, wall ms, {name: (launches, ms)}).  Busy and wall time are of
+    the same run, so their ratio is its device idle share; the wall time
+    carries the profiler's own cost on the host."""
+    events, wall_ms = device_events(fn)
     rows = {}
     for e in events:
-        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS:
-            n, ms = rows.get(e["name"], (0, 0.0))
-            rows[e["name"]] = (n + 1, ms + float(e["dur"]) / 1e3)
-    log(f"profiler trace: {len(events)} events read in {time.perf_counter() - t0:.2f} s")
+        n, ms = rows.get(e["name"], (0, 0.0))
+        rows[e["name"]] = (n + 1, ms + float(e["dur"]) / 1e3)
     return sum(ms for _, ms in rows.values()), wall_ms, rows
 
 
@@ -1234,40 +1436,57 @@ def _counted():
             "tridiag_partitioned": tridiag.partitioned_cuda}
 
 
-def _main_run(rec, fn):
-    """``fn()`` as a run of the configuration's main path: every kernel
-    counter set to 0 just before and read just after, the counts added to
-    ``rec["main_launches"]``.  The checks and timings around it launch
-    kernels too; those launches are not counted."""
-    wrappers = _counted()
+def _zero_counts(wrappers):
+    """Set each wrapper's count of calls, and of CUDA kernels where it
+    keeps one (``kernel_launches``), to 0."""
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "kernel_launches"):
+            w.kernel_launches = 0
+
+
+def _kernel_counts(wrappers):
+    return {k: w.kernel_launches for k, w in wrappers.items() if hasattr(w, "kernel_launches")}
+
+
+def _main_run(rec, fn):
+    """``fn()`` as a run of the configuration's main path: every kernel
+    counter set to 0 just before and read just after, the wrapper calls
+    added to ``rec["main_launches"]`` and the CUDA kernels of the wrappers
+    that count them to ``rec["main_kernels"]``.  The checks and timings
+    around it launch kernels too; those launches are not counted."""
+    wrappers = _counted()
+    _zero_counts(wrappers)
     out = fn()
     main = rec.setdefault("main_launches", dict.fromkeys(wrappers, 0))
+    kernels = rec.setdefault("main_kernels", dict.fromkeys(_kernel_counts(wrappers), 0))
     for k, w in wrappers.items():
         main[k] += w.launches
+    for k, n in _kernel_counts(wrappers).items():
+        kernels[k] += n
     return out
 
 
 def _config(name, device, body):
     """Run ``body(rec)`` for one configuration with every kernel counter
     and the peak-memory counter set to 0 just before; the record gets the
-    peak memory, the seconds and the launches: those of the runs the body
+    peak memory, the seconds, the launches (wrapper calls) and the CUDA
+    kernels of the wrappers that count them: those of the runs the body
     marks with :func:`_main_run`, or of the whole body where it marks none
     (the RBF phase, on which no kernel runs)."""
     import torch
 
-    wrappers = _counted()
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_counts(_counted())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rec = {}
     body(rec)
     main = rec.pop("main_launches", None) or {k: w.launches for k, w in _counted().items()}
+    kernels = rec.pop("main_kernels", None) or _kernel_counts(_counted())
     rec.update(phase_s=time.perf_counter() - t0,
                peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
-               **{f"{k}_launches": n for k, n in main.items()})
+               **{f"{k}_launches": n for k, n in main.items()},
+               **{f"{k}_kernels": n for k, n in kernels.items()})
     log(f"{name}: {json.dumps(rec)}")
     return rec
 
@@ -1942,6 +2161,13 @@ def gsl2d_2k(rec, device="cuda"):
     rec["tridiag_kernel"] = recs
 
 
+def boundary_problem():
+    """bench.py:599-647's sites and queries (numpy float64)."""
+    rng = np.random.default_rng(42)
+    sites = rng.uniform(-0.5, 0.5, size=(N_BOUNDARY, 2))
+    return sites, rng.uniform(-0.45, 0.45, size=(Q_BOUNDARY, 2))
+
+
 def boundary_100k(rec, device="cuda"):
     """bench.py:599-647: the locate kernel at T ~ 101,000 against
     locate_dense on a Qhull import of 50,500 sites cast to float32, 50,000
@@ -1953,8 +2179,7 @@ def boundary_100k(rec, device="cuda"):
     from gsl_scattered_interpolation_torch.models import geometry_extras as gx
     from gsl_scattered_interpolation_torch.ops import locate
 
-    rng = np.random.default_rng(42)
-    sites = rng.uniform(-0.5, 0.5, size=(N_BOUNDARY, 2))
+    sites, q_np = boundary_problem()
     t0 = time.perf_counter()
     sd = Delaunay(sites)
     rec["qhull_s"] = time.perf_counter() - t0
@@ -1962,11 +2187,11 @@ def boundary_100k(rec, device="cuda"):
         lambda: gx.from_scipy_delaunay(sd, sites, device=device).cast(torch.float32), device))
     rec["n_tris"] = int(tri32.n_tris)
     require(tri32.n_tris >= 100_000, f"T = {tri32.n_tris}")
-    q = torch.tensor(rng.uniform(-0.45, 0.45, size=(Q_BOUNDARY, 2)), dtype=torch.float32,
-                     device=device)
-    before = rec["main_launches"]["locate2d"]
+    q = torch.tensor(q_np, dtype=torch.float32, device=device)
+    before = rec["main_launches"]["locate2d"], rec["main_kernels"]["locate2d"]
     idx_p = _main_run(rec, lambda: locate.locate_dense_kernel(tri32, q))
-    rec["kernel_launches"] = rec["main_launches"]["locate2d"] - before
+    rec["kernel_launches"] = rec["main_launches"]["locate2d"] - before[0]
+    rec["cuda_kernels"] = rec["main_kernels"]["locate2d"] - before[1]
     idx_d = device_tri.locate_dense(tri32, q)[0]
     vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
     resp = torch.cat([torch.zeros(3, device=device),
@@ -1978,12 +2203,7 @@ def boundary_100k(rec, device="cuda"):
     rec["max_interp_diff"] = float((out_p - out_d).abs().max())
     require(rec["mismatch_rate"] < LEAF_MISMATCH_MAX, f"boundary mismatch: {rec}")
     require(rec["max_interp_diff"] < EVAL_VS_DENSE_MAX, f"boundary diff: {rec}")
-    kern = check_locate(tri32, q)
-    require(kern["mismatches"] == 0, f"locate2d disagrees with its plain version: {kern}")
-    rec["kernel"] = kern
-    busy, wall, _ = profile_build(lambda: locate.locate_dense_kernel(tri32, q))
-    rec["profiled_locate"] = {"wall_s": wall / 1e3, "device_busy_ms": busy,
-                              "device_idle_share": 1.0 - busy / wall}
+    rec["kernel"] = check_locate(tri32, q)
 
 
 def geometry_200k(rec, device="cuda"):
@@ -2085,13 +2305,24 @@ class RoundClock:
     """Within ``with``, time each call of ``device_tri.interp`` (one thin
     round's evaluation of its dropped sites), the card synchronised before
     and after, and the time from the end of the previous call (or from
-    entry) to its start: the round's build and its host bookkeeping."""
+    entry) to its start: the round's build and its host bookkeeping.
+    ``largest`` keeps (triangulation, queries) of the round with the most
+    pairs among those that the locate kernel serves (float32, T <=
+    PALLAS_LOCATE_MAX_TRIS)."""
 
     def __enter__(self):
         from gsl_scattered_interpolation_torch.models import device_tri
 
         self.rounds, self._orig = [], device_tri.interp
         self._last = time.perf_counter()
+        self.largest, pairs = None, 0
+
+        def keep(tri, q):
+            nonlocal pairs
+            n = q.shape[0] * tri.n_tris
+            if (device_tri.auto_method(q.device.type, tri.dim, tri.dtype, tri.n_tris, False)
+                    == "pallas" and n > pairs):
+                self.largest, pairs = (tri, q), n
 
         def timed(tri, resp, q, *args, **kw):
             sync(q.device)
@@ -2101,6 +2332,7 @@ class RoundClock:
             t1 = time.perf_counter()
             self.rounds.append({"dropped": int(q.shape[0]), "n_tris": int(tri.n_tris),
                                 "build_s": t0 - self._last, "interp_s": t1 - t0})
+            keep(tri, q)
             self._last = t1
             return out
 
@@ -2130,11 +2362,13 @@ def thin_200k(rec, device="cuda"):
         name = str(dtype).split(".")[-1]
         r = {}
         before = dict(rec.get("main_launches", dict.fromkeys(_counted(), 0)))
+        before_k = dict(rec.get("main_kernels", dict.fromkeys(_kernel_counts(_counted()), 0)))
         with RoundClock() as clock:
             res, r["thin_s"] = _main_run(rec, lambda: _timed(lambda: thinning.thin(
                 sites, vals, THIN_TOL, builder=builder, dtype=dtype, device=device), device))
         r.update(rounds=res.rounds, kept=int(res.keep.size), max_error=res.max_error,
                  locate2d_launches=rec["main_launches"]["locate2d"] - before["locate2d"],
+                 locate2d_kernels=rec["main_kernels"]["locate2d"] - before_k["locate2d"],
                  candmath2d_launches=rec["main_launches"]["candmath2d"] - before["candmath2d"],
                  per_round=clock.rounds)
         require(res.max_error <= THIN_TOL, f"thin {builder}: {r}")
@@ -2143,6 +2377,8 @@ def thin_200k(rec, device="cuda"):
         if builder == "device":
             require(r["candmath2d_launches"] > 0 and r["locate2d_launches"] > 0,
                     f"thin device: a kernel never launched: {r}")
+            # The locate kernel at the largest (B, T) of the f32 rounds.
+            r["kernel"] = check_locate(*clock.largest)
         drop = np.setdiff1d(np.arange(N_THIN), res.keep)
         q = torch.tensor(sites[drop], dtype=dtype, device=device)
         resp = device_tri.response_for_build(res.shuffle, vals[res.keep], device=device).to(dtype)
@@ -2303,6 +2539,7 @@ def main() -> int:
     for name, (out, secs) in built.items():
         log(f"nvcc {name}: {secs:.2f} s\n{out}")
 
+    loc_sass = locate_sass()
     sass = sass_counts(candmath.KERNEL)
     require(set(sass) == {"float", "double"}, f"SASS functions: {sorted(sass)}")
     for fn, ops in sass.items():
@@ -2312,16 +2549,15 @@ def main() -> int:
             f"{fp} of them {pre}*; {json.dumps(ops)}")
 
     # 3. Locate kernel against its plain version at T = 4001 and T = 16001.
+    global LOCATE_CALLS
+    LOCATE_CALLS = LocateCalls()
     t0 = time.perf_counter()
     locate_recs = []
     locate_tris = (host_triangulation(N_SITES, 0, "cuda"),
                    device_triangulation(N_SITES_LARGE, 1, "cuda"))
     for tri in locate_tris:
         q = uniform_queries(BATCH, seed=2, device="cuda")[0]
-        rec = check_locate(tri, q)
-        log(f"locate2d kernel vs plain: {json.dumps(rec)}")
-        require(rec["mismatches"] == 0, f"locate2d disagrees with its plain version: {rec}")
-        locate_recs.append(rec)
+        locate_recs.append(check_locate(tri, q))
     torch.cuda.synchronize()
     log(f"phase locate kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
 
@@ -2343,18 +2579,20 @@ def main() -> int:
 
     # 6. The main paths, each counted from zero.
     t0 = time.perf_counter()
-    locate.locate2d_cuda.launches = 0
+    _zero_counts({"locate2d": locate.locate2d_cuda})
     host = main_path("cuda", N_SITES, BATCH, N_BATCHES, N_CHECK, "host")
     host["locate2d_launches"] = locate.locate2d_cuda.launches
+    host["locate2d_kernels"] = locate.locate2d_cuda.kernel_launches
     log(f"main path: {json.dumps(host)}")
     require(host["locate2d_launches"] > 0, "the host path never launched locate2d")
     log(f"phase main path host: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    locate.locate2d_cuda.launches = 0
-    candmath.edge_candidates_math_cuda.launches = 0
+    _zero_counts({"locate2d": locate.locate2d_cuda,
+                  "candmath2d": candmath.edge_candidates_math_cuda})
     dev = main_path("cuda", N_SITES, BATCH, N_BATCHES, N_CHECK, "device")
     dev["locate2d_launches"] = locate.locate2d_cuda.launches
+    dev["locate2d_kernels"] = locate.locate2d_cuda.kernel_launches
     dev["candmath2d_launches"] = candmath.edge_candidates_math_cuda.launches
     log(f"main path: {json.dumps(dev)}")
     require(dev["locate2d_launches"] > 0, "the device path never launched locate2d")
@@ -2413,8 +2651,21 @@ def main() -> int:
     pcfg = phase_structured()
     log(f"phase structured: {time.perf_counter() - t0:.2f} s")
 
+    # 12. One call of each locate route at each checked shape, counted and
+    # profiled in a fresh process.
+    t0 = time.perf_counter()
+    LOCATE_CALLS.profile()
+    bnd = pcfg["boundary_100k"]
+    require(bnd["cuda_kernels"] == bnd["kernel"]["leaf_call"]["kernels_per_call"],
+            f"boundary: {bnd['cuda_kernels']} CUDA kernels on the main path, "
+            f"{bnd['kernel']['leaf_call']['kernels_per_call']} in the profiled call")
+    log(f"phase locate calls profiled: {time.perf_counter() - t0:.2f} s")
+
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
+    loc_shapes = {"headline": loc, "t16001": locate_recs[1],
+                  "boundary_100k": pcfg["boundary_100k"]["kernel"],
+                  "thin_200k": pcfg["thin_200k"]["device_float32"]["kernel"]}
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
     kernels = [{
@@ -2423,6 +2674,13 @@ def main() -> int:
         "source": "gsl_scattered_interpolation_torch/kernels/csrc/locate2d.cu",
         "replaces": "gsl_scattered_interpolation_tpu/ops/pallas_locate.py:35",
         "launches": dev["locate2d_launches"],
+        # CUDA kernels on the main paths, by the wrapper's counter (the
+        # sweep, and the merge pass where the call splits); each shape's
+        # record holds one call's count beside what the profiler saw.
+        "cuda_kernels": dev["locate2d_kernels"],
+        "cuda_kernels_by_path": {"host": host["locate2d_kernels"],
+                                 "device": dev["locate2d_kernels"],
+                                 **{k: r["locate2d_kernels"] for k, r in pcfg.items()}},
         "launches_by_path": {"host": host["locate2d_launches"],
                              "device": dev["locate2d_launches"],
                              **{f"at_scale_{k}": r["locate2d_launches"]
@@ -2432,8 +2690,8 @@ def main() -> int:
                              **{k: r["locate2d_launches"] for k, r in p3d.items()},
                              **{k: r["locate2d_launches"] for k, r in prbf.items()},
                              **{k: r["locate2d_launches"] for k, r in pcfg.items()}},
-        "max_abs_err": max(r["max_abs_err"] for r in
-                           (*locate_recs, pcfg["boundary_100k"]["kernel"])),
+        "max_abs_err": max(r["max_abs_err"] for r in loc_shapes.values()),
+        "weights_max_abs_err": max(r["weights_max_abs_err"] for r in loc_shapes.values()),
         "ms": loc["ms"],
         "device_ms": loc["device_ms"],
         "plain_ms": loc["plain_ms"],
@@ -2441,11 +2699,21 @@ def main() -> int:
         "bound_by": loc["bound_by"],
         "library_ms": None,  # no one PyTorch call computes this function
         "shape": f"B={loc['B']} T={loc['T']}",
-        "boundary_100k": {k: pcfg["boundary_100k"]["kernel"][k]
-                          for k in ("B", "T", "mismatches", *TIMES)}
-        | {"launches": pcfg["boundary_100k"]["kernel_launches"],
-           "mismatch_rate_vs_dense": pcfg["boundary_100k"]["mismatch_rate"],
-           "max_interp_diff_vs_dense": pcfg["boundary_100k"]["max_interp_diff"]},
+        # Above, the leaf route (locate_dense_kernel); here the eval's
+        # route at the same shape (locate_weights_kernel).
+        **{k: loc[k] for k in ("weights_ms", "weights_device_ms", "weights_plain_ms",
+                               "weights_bound_ms")},
+        # Every main-path shape: the leaf route and the weights route (the
+        # eval's), each held to the bit, with the slices and CUDA kernels
+        # of one call as the counter and the profiler saw them.
+        "shapes": loc_shapes,
+        "boundary_100k": {"launches": pcfg["boundary_100k"]["kernel_launches"],
+                          "cuda_kernels": pcfg["boundary_100k"]["cuda_kernels"],
+                          "mismatch_rate_vs_dense": pcfg["boundary_100k"]["mismatch_rate"],
+                          "max_interp_diff_vs_dense": pcfg["boundary_100k"]["max_interp_diff"]},
+        # Issued instructions per pair in each sweep's hot loop (bound: 13).
+        "sass_per_pair": {fn: r["inner_loop"]["per_pair"]
+                          for fn, r in loc_sass.items() if "inner_loop" in r},
     }, {
         "name": candmath.KERNEL,
         "route": "cuda",

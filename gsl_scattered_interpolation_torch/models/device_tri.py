@@ -1502,8 +1502,7 @@ def interp(
             )
         leaf, w, in_domain = locate_cells(tri, cells, q_raw)
     elif method == "pallas":
-        leaf = locate_ops.locate_dense_kernel(tri, q_raw)
-        w = _weights(tri, leaf, q_raw)
+        leaf, w = locate_ops.locate_weights_kernel(tri, q_raw)
         in_domain = _in_domain(w)
     elif method == "dense":
         leaf, w, in_domain = locate_dense(tri, q_raw)

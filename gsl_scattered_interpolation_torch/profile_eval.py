@@ -10,9 +10,11 @@ changes it) with ``engine="device"`` and then
 
 1. times each stage of ``device_tri.interp`` alone with CUDA events.  On
    the kernel's route (up to ``DENSE_LOCATE_MAX_TRIS`` simplexes): packing
-   the locate tables (done once per triangulation), centring the queries,
-   the locate kernel, the barycentric weights, and the response gather and
-   sum.  On the cell index's route (past it; e.g. ``--sites 200000``):
+   the locate tables (done once per triangulation), the locate kernel
+   alone (``locate2d_leaves``) and with the weights in its epilogue
+   (``locate2d_weights``, what the eval runs), the weights' plain
+   version that the epilogue replaced, the domain test, and the response
+   gather and sum.  On the cell index's route (past it; e.g. ``--sites 200000``):
    ``locate_cells`` without and with its walk fallback, and the response
    gather and sum;
 2. traces a few eval batches with ``torch.profiler`` and prints the ops by
@@ -87,17 +89,13 @@ def main(argv=None) -> int:
     res = {"B": args.batch, "T": tri.n_tris}
     if cells is None:
         res["route"] = "pallas"
-        centre, g_pack, b_pack = locate.pack_tables(tri)
-        qc = (q - centre).contiguous()
-        leaf = locate.locate2d_cuda(qc, g_pack, b_pack)
-        w = device_tri._weights(tri, leaf, q)
+        leaf, w = locate.locate_weights_kernel(tri, q)
         stages = {
             "pack_tables": lambda: locate.pack_tables(tri),
-            "centre_queries": lambda: (q - centre).contiguous(),
-            "locate2d": lambda: locate.locate2d_cuda(qc, g_pack, b_pack),
-            "weights_and_domain": lambda: device_tri._in_domain(
-                device_tri._weights(tri, leaf, q)
-            ),
+            "locate2d_leaves": lambda: locate.locate_dense_kernel(tri, q),
+            "locate2d_weights": lambda: locate.locate_weights_kernel(tri, q),
+            "weights_plain": lambda: device_tri._weights(tri, leaf, q),
+            "in_domain": lambda: device_tri._in_domain(w),
         }
     else:
         res["route"] = "cells"

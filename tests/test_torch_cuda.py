@@ -34,8 +34,8 @@ def _tri(n_sites, seed, device):
     return device_tri.freeze(tree, device=device).cast(torch.float32)
 
 
-# Ragged sizes: B not a multiple of the 256-thread block, T below, at and
-# past the 1,024-triangle shared-memory chunk.
+# Ragged sizes: B not a multiple of the 1,024-query tile, T below, at and
+# past the 512-triangle shared-memory chunk.
 @pytest.mark.parametrize("n_sites,n_q", [(1, 1), (300, 1000), (511, 257), (1500, 70_001)])
 def test_kernel_equals_plain(cuda, n_sites, n_q):
     tri = _tri(n_sites, n_sites, cuda)
@@ -44,7 +44,7 @@ def test_kernel_equals_plain(cuda, n_sites, n_q):
     centre, g_pack, b_pack = locate.pack_tables(tri)
     qc = (q - centre).contiguous()
     before = locate.locate2d_cuda.launches
-    got = locate.locate2d_cuda(qc, g_pack, b_pack)
+    got = locate.locate2d_cuda(q, g_pack, b_pack, centre)
     torch.cuda.synchronize()
     assert locate.locate2d_cuda.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (n_q,)
@@ -61,7 +61,7 @@ def test_tie_goes_to_lowest_index(cuda):
         g[0, t] = g[3, t] = 1.0
         b[:, t] = 0.2
     q = torch.tensor([[0.1, 0.1], [-0.05, 0.02], [3.0, -2.0]], device=cuda)
-    got = locate.locate2d_cuda(q, g, b)
+    got = locate.locate2d_cuda(q, g, b, torch.zeros(2, device=cuda))
     assert got.tolist() == [1, 1, 1]
     assert locate.locate2d_ref(q, g, b).tolist() == [1, 1, 1]
 
@@ -70,13 +70,127 @@ def test_wrapper_checks_inputs(cuda):
     g = torch.zeros(4, 3, device=cuda)
     b = torch.zeros(2, 3, device=cuda)
     q = torch.zeros(5, 2, device=cuda)
+    c = torch.zeros(2, device=cuda)
     with pytest.raises(errors.InvalidArgumentError):
-        locate.locate2d_cuda(q.double(), g, b)
+        locate.locate2d_cuda(q.double(), g, b, c)
     with pytest.raises(errors.InvalidArgumentError):
-        locate.locate2d_cuda(torch.zeros(2, 5, device=cuda).T, g, b)
+        locate.locate2d_cuda(torch.zeros(2, 5, device=cuda).T, g, b, c)
     with pytest.raises(errors.InvalidArgumentError):
-        locate.locate2d_cuda(q, g[:3], b)
-    assert locate.locate2d_cuda(q[:0], g, b).shape == (0,)
+        locate.locate2d_cuda(q, g[:3], b, c)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g, b, c[:1])
+    assert locate.locate2d_cuda(q[:0], g, b, c).shape == (0,)
+
+
+def _force_split(monkeypatch, slices):
+    """Make locate2d_cuda split into about ``slices`` slices (None: the
+    card's plan)."""
+    if slices is None:
+        return
+
+    def forced(n_q, n_t, n_sms):
+        length = -(-n_t // slices)
+        length = -(-length // locate.GROUP) * locate.GROUP
+        return -(-n_t // length), length
+
+    monkeypatch.setattr(locate, "plan", forced)
+
+
+def _check_leaves_and_weights(tri, q):
+    """The weights route and the leaf route against their plain versions,
+    to the bit."""
+    centre, g_pack, b_pack = locate.pack_tables(tri)
+    ref = locate.locate2d_ref((q - centre).contiguous(), g_pack, b_pack)
+    before = locate.locate2d_cuda.launches
+    leaf, w = locate.locate_weights_kernel(tri, q)
+    only = locate.locate_dense_kernel(tri, q)
+    torch.cuda.synchronize()
+    assert locate.locate2d_cuda.launches == before + 2
+    assert leaf.dtype == torch.int32 and w.dtype == torch.float32 and w.shape == (q.shape[0], 3)
+    torch.testing.assert_close(leaf, ref, rtol=0, atol=0)
+    torch.testing.assert_close(only, ref, rtol=0, atol=0)
+    torch.testing.assert_close(w, device_tri._weights(tri, ref, q), rtol=0, atol=0)
+
+
+# Split and unsplit grids; B not a multiple of the 8-query register block
+# or the 1,024-query tile; T not a multiple of the 32-triangle group or the
+# 512-triangle chunk; queries inside, just outside and far outside the hull.
+@pytest.mark.parametrize("slices", [None, 1, 3, 16])
+@pytest.mark.parametrize("n_sites,n_q", [(1, 1), (300, 1000), (511, 257), (1500, 70_001),
+                                         (2000, 1021)])
+def test_weights_kernel_equals_plain(cuda, monkeypatch, n_sites, n_q, slices):
+    _force_split(monkeypatch, slices)
+    tri = _tri(n_sites, n_sites, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n_q)
+    q = torch.rand(n_q, 2, generator=gen, device=cuda) * 1.2 - 0.6
+    q[::7] *= 40.0  # far outside the hull
+    before = locate.locate2d_cuda.kernel_launches
+    _check_leaves_and_weights(tri, q)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split, _ = locate.plan(n_q, tri.n_tris, n_sms)
+    assert locate.locate2d_cuda.kernel_launches == before + 2 * locate.kernels_per_call(split)
+
+
+def test_single_triangle(cuda):
+    g = torch.tensor([[1.0], [0.0], [0.0], [1.0]], device=cuda)
+    b = torch.tensor([[0.2], [0.3]], device=cuda)
+    q = torch.rand(1000, 2, device=cuda) * 10 - 5
+    got = locate.locate2d_cuda(q, g, b, torch.zeros(2, device=cuda))
+    assert got.tolist() == [0] * 1000
+    torch.testing.assert_close(got, locate.locate2d_ref(q, g, b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3, 7])
+def test_duplicated_triangles_keep_the_earlier_index(cuda, monkeypatch, slices):
+    # The table twice over: every triangle's twin lies in a later slice
+    # (or later in the same one), and the earlier index must win.
+    _force_split(monkeypatch, slices)
+    tri = _tri(700, 3, cuda)
+    centre, g_pack, b_pack = locate.pack_tables(tri)
+    T0 = tri.n_tris
+    g2, b2 = torch.cat([g_pack, g_pack], 1).contiguous(), torch.cat([b_pack, b_pack], 1).contiguous()
+    q = torch.rand(20_000, 2, device=cuda) * 1.1 - 0.55
+    qc = (q - centre).contiguous()
+    ref = locate.locate2d_ref(qc, g2, b2)
+    assert int(ref.max()) < T0
+    torch.testing.assert_close(locate.locate2d_cuda(q, g2, b2, centre), ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("slices", [None, 1, 5])
+def test_degenerate_rows_never_win(cuda, monkeypatch, slices):
+    _force_split(monkeypatch, slices)
+    tri = _tri(900, 4, cuda)
+    centre, g_pack, b_pack = locate.pack_tables(tri)
+    b_pack = b_pack.clone()
+    b_pack[:, ::3] = -1e30  # a third of the triangles degenerate
+    q = torch.rand(30_000, 2, device=cuda) * 1.4 - 0.7
+    qc = (q - centre).contiguous()
+    ref = locate.locate2d_ref(qc, g_pack, b_pack)
+    assert not bool((ref % 3 == 0).any())
+    torch.testing.assert_close(locate.locate2d_cuda(q, g_pack, b_pack, centre), ref,
+                               rtol=0, atol=0)
+    # Every triangle degenerate: the first one, as argmax gives it.
+    b_all = torch.full_like(b_pack, -1e30)
+    torch.testing.assert_close(locate.locate2d_cuda(q, g_pack, b_all, centre),
+                               locate.locate2d_ref(qc, g_pack, b_all), rtol=0, atol=0)
+
+
+def test_wrapper_checks_weights_inputs(cuda):
+    g = torch.zeros(4, 3, device=cuda)
+    b = torch.zeros(2, 3, device=cuda)
+    q = torch.zeros(5, 2, device=cuda)
+    c = torch.zeros(2, device=cuda)
+    a = torch.zeros(3, 8, device=cuda)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g, b, c.double(), affine=a)
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g, b, centre=c, affine=a[:2])
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g, b, centre=c, affine=a.double())
+    with pytest.raises(errors.InvalidArgumentError):
+        locate.locate2d_cuda(q, g, b, centre=c[:1], affine=a)
+    leaf, w = locate.locate2d_cuda(q[:0], g, b, centre=c, affine=a)
+    assert leaf.shape == (0,) and w.shape == (0, 3)
 
 
 def test_facade_on_card_matches_cpu(cuda):
