@@ -56,7 +56,22 @@ Voronoi diagram and a save/load round trip of the 200k sites; ``thin`` of
 float64, each held by scipy; and the alpha-shape surface of a 61,000-point
 ball.  Every tridiagonal system those inits solved is held against the
 plain version of the route it took (partitioned or sequential), on the
-card, with both routes timed.  Everything is timed.
+card, with both routes timed.  Last, the parallel phase, in a fresh
+process that joins a process group of one rank under NCCL, each
+configuration counted from zero: ``interp_sharded`` of the headline under
+10 batches of a million queries through the locate kernel, and of the 200k
+build through its cell index, each bit-equal to ``interp``; the tp-sharded
+CG fit of 8,192 Wendland sites against the direct solve (and, read but
+not gated, the same fit on two sets of uniform random sites); the sp ring's fit
+and matvec on wendland_1m's cell grid against the single-process ones; the
+tp-sharded Cholesky at n = 8,192 beside ``torch.linalg.cholesky``; and
+``dryrun_multichip``.  Everything is timed.
+
+    python3 chip_smoke.py --parallel-ranks 2 4 [--out records.json]
+
+runs only the parallel phase's configurations, at 2 and then 4 ranks under
+NCCL, one card each, each rank's part held against the single-process
+function; it needs as many cards as the largest N.
 
 Earlier lines are diagnostics.  The line before the last is one JSON object
 with a record for each kernel; the last line is
@@ -2507,6 +2522,376 @@ def tridiag_summary(pcfg):
                      sum(v["tridiag_partitioned"] for v in by_path.values()))]
 
 
+# The parallel phase: the port's parallel/ on torch.distributed, at world
+# size 1 under NCCL (as run with no arguments: one card), in a fresh process
+# that keeps NCCL's state out of the other phases.  World size 1 cuts nothing
+# but the ranks: each configuration runs at its single-process size.
+# ``--parallel-ranks N ...`` runs the same configurations at N ranks, one
+# card each, every rank's part held against the single-process function.
+PARALLEL_TIMEOUT_S = 240
+PARALLEL_RANKS_TIMEOUT_S = 600
+# tp_cg's 8,192 = N_DIRECT sites lie on a jittered lattice at the density of
+# the JAX package's sharded-CG test.  On uniform random sites plain CG (JAX's
+# algorithm) does not reach tol 1e-10 within 500 iterations: the phase reads
+# that on rbf_direct's sites and on uniform sites at the lattice's density.
+TP_CG_LATTICE = (128, 64)
+TP_CG_NEIGHBORS = 33       # sites within each one's support: JAX's test's density
+TP_CG_EPS = 6.0
+TP_CG_MAXITER = 500
+TP_CG_VS_DIRECT_MAX = 1e-6    # tests/test_parallel.py's tolerance
+RING_MAXITER = 100            # a depth cut, for time (wendland_1m's PCG runs 400)
+RING_MATVEC_REL_MAX = 1e-6
+RING_FIT_REL_MAX = 1e-4
+CHOL_BLOCK = 256
+CHOL_VS_LIBRARY_MAX = 1e-8    # times n: tests/test_parallel.py's tolerance
+CHOL_SOLVE_MAX = 1e-7
+
+
+def _mismatches(outs, refs):
+    """Entries of the outputs that are not bit-equal to the references."""
+    return sum(int((a != b).sum()) for a, b in zip(outs, refs))
+
+
+def _world() -> int:
+    import torch
+
+    return torch.distributed.get_world_size()
+
+
+def _rank_rows(n, mesh, axis):
+    """This rank's rows of ``n`` along the mesh's ``axis``."""
+    from gsl_scattered_interpolation_torch.parallel import sharding
+
+    return sharding._block(n, mesh, axis, "chip_smoke")
+
+
+def par_dp_interp(rec, device="cuda"):
+    """The headline (2,000 sites, T = 4,001, the host build in float32)
+    under 10 batches of 10^6 queries through ``interp_sharded`` over every
+    rank as ``dp``: the locate kernel's route, one wrapper call per batch;
+    each rank's block bit-equal to ``device_tri.interp`` on the same rows,
+    and the gathered first batch to ``interp`` on the whole batch."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_tri, host_tree
+    from gsl_scattered_interpolation_torch.parallel import mesh as pmesh, sharding
+
+    sites, values = headline_problem(N_SITES, 0)
+    tree = host_tree.build(sites, flags=host_tree.NOSTANDARDIZE)
+    tri = device_tri.freeze(tree, grid_res=128, device=device).cast(torch.float32)
+    resp = device_tri.reindex_response(tree, values, device=device).to(torch.float32)
+    mesh = pmesh.make_mesh(dp=_world(), tp=1, device=device)
+    rows = _rank_rows(BATCH, mesh, "dp")
+    block = rows.stop - rows.start
+    Q = uniform_queries(BATCH, seed=1, device=device, batches=N_BATCHES)
+    sharding.interp_sharded(tri, resp, Q[0], mesh)  # first use loads the kernel
+    outs, rec["eval_s"] = _timed(lambda: _main_run(rec, lambda: [
+        sharding.interp_sharded(tri, resp, Q[i], mesh) for i in range(N_BATCHES)]), device)
+    # queries_per_s is this rank's.
+    rec.update(T=tri.n_tris, B=BATCH, block=block, batches=N_BATCHES,
+               mesh=list(mesh.shape), queries_per_s=block * N_BATCHES / rec["eval_s"])
+    rec["mismatches"] = _mismatches(outs, [device_tri.interp(tri, resp, Q[i][rows])
+                                           for i in range(N_BATCHES)])
+    rec["gathered_mismatches"] = _mismatches([sharding.gather_rows(outs[0], mesh)],
+                                             [device_tri.interp(tri, resp, Q[0])])
+    require(all(o.shape == (block,) and bool(torch.isfinite(o).all()) for o in outs),
+            "dp_interp: wrong shape or non-finite values")
+    require(rec["mismatches"] == 0 and rec["gathered_mismatches"] == 0,
+            f"dp_interp differs from interp: {rec}")
+    require(rec["main_launches"]["locate2d"] == N_BATCHES,
+            f"dp_interp: {rec['main_launches']['locate2d']} locate2d calls")
+
+
+def par_dp_cells(rec, device="cuda"):
+    """The 200k float32 device build of BUILD_SEED (T = 400,001) with its
+    cell index, one 10^6-query batch through ``interp_sharded(method=
+    "cells")`` over every rank as ``dp``, each rank's block bit-equal to
+    the single-process call on the same rows."""
+    import torch
+
+    from gsl_scattered_interpolation_torch import ScatteredInterp
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
+    from gsl_scattered_interpolation_torch.parallel import mesh as pmesh, sharding
+
+    sites = np.random.default_rng(BUILD_SEED).uniform(-0.5, 0.5, size=(N_BUILD, 2))
+    si, rec["build_s"] = _timed(lambda: ScatteredInterp(
+        sites, headline_values(sites), flags=NOSTANDARDIZE, engine="device",
+        dtype=torch.float32, grid_res=256, device=device), device)
+    cells, rec["index_s"] = _timed(si._get_cells, device)
+    q = uniform_queries(BATCH, seed=5, device=device)[0]
+    mesh = pmesh.make_mesh(dp=_world(), tp=1, device=device)
+    rows = _rank_rows(BATCH, mesh, "dp")
+    block = rows.stop - rows.start
+    si.eval(q)  # first use of the cell route in this process
+    out, rec["eval_s"] = _timed(lambda: _main_run(rec, lambda: sharding.interp_sharded(
+        si.tri, si.response, q, mesh, method="cells", cells=cells)), device)
+    rec.update(T=si.n_simplexes, B=BATCH, block=block, queries_per_s=block / rec["eval_s"],
+               mismatches=_mismatches([out], [device_tri.interp(
+                   si.tri, si.response, q[rows], method="cells", cells=cells)]))
+    require(out.shape == (block,) and bool(torch.isfinite(out).all()),
+            "dp_cells: wrong shape or non-finite values")
+    require(rec["mismatches"] == 0, f"dp_cells differs from interp: {rec}")
+
+
+def tp_cg_problem():
+    """8,192 sites on a jittered 128 x 64 lattice whose spacing puts about
+    TP_CG_NEIGHBORS sites within each one's support (1/TP_CG_EPS), and
+    bench.py's test function."""
+    h = np.sqrt(np.pi / TP_CG_NEIGHBORS) / TP_CG_EPS
+    ij = np.stack(np.meshgrid(*map(np.arange, TP_CG_LATTICE), indexing="ij"), -1)
+    lattice = ij.reshape(-1, 2) * h
+    sites = lattice + np.random.default_rng(33).uniform(-0.3 * h, 0.3 * h, lattice.shape)
+    return sites, headline_values(sites)
+
+
+def tp_cg_uniform_problems():
+    """{name: (sites, values)} of N_DIRECT uniform random sites: rbf_direct's
+    (default_rng(31) in [-1, 1]^2, about 180 sites within each support) and
+    sites over the lattice's extent (about TP_CG_NEIGHBORS within each)."""
+    h = np.sqrt(np.pi / TP_CG_NEIGHBORS) / TP_CG_EPS
+    direct = np.random.default_rng(31).uniform(-1.0, 1.0, size=(N_DIRECT, 2))
+    extent = np.random.default_rng(34).uniform(
+        0.0, np.array(TP_CG_LATTICE, dtype=float) * h, size=(N_DIRECT, 2))
+    return {name: (s, headline_values(s))
+            for name, s in (("uniform_rbf_direct", direct), ("uniform_lattice_extent", extent))}
+
+
+def _tp_cg_fit(rec, sites, values, mesh, device, main):
+    """``rbf_fit_cg_sharded`` (tol 1e-10, TP_CG_MAXITER) beside the port's
+    direct ``RbfInterp`` (Cholesky) of the same Wendland-C2 system, into
+    ``rec``; the fit counted as the main path where ``main``."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf
+    from gsl_scattered_interpolation_torch.parallel import sharding
+
+    direct, rec["direct_s"] = _timed(lambda: rbf.RbfInterp(
+        sites, values, kernel="wendland_c2", epsilon=TP_CG_EPS, standardize=False,
+        dtype=torch.float64, device=device), device)
+    require(direct.solver == "direct", f"RbfInterp took {direct.solver}")
+    stats = {}
+
+    def fit():
+        return sharding.rbf_fit_cg_sharded(sites, values, mesh, epsilon=TP_CG_EPS,
+                                           tol=1e-10, maxiter=TP_CG_MAXITER, stats=stats)
+
+    lam, rec["fit_s"] = _timed((lambda: _main_run(rec, fit)) if main else fit, device)
+    rec.update(n=sites.shape[0], **stats,
+               rel_residual=stats["residual"] / float(np.linalg.norm(values)),
+               s_per_iteration=rec["fit_s"] / max(stats["iterations"], 1),
+               max_abs_vs_direct=float((lam - direct.lam).abs().max()),
+               max_abs_lam=float(direct.lam.abs().max()))
+
+
+def par_tp_cg(rec, device="cuda"):
+    """``rbf_fit_cg_sharded`` of Wendland-C2 over N_DIRECT lattice sites in
+    float64, every rank as ``tp``, within TP_CG_VS_DIRECT_MAX of the direct
+    solve; then the same fit on the uniform sites of
+    :func:`tp_cg_uniform_problems`, read and not gated."""
+    from gsl_scattered_interpolation_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(dp=1, tp=_world(), device=device)
+    sites, values = tp_cg_problem()
+    _tp_cg_fit(rec, sites, values, mesh, device, main=True)
+    for name, (s, v) in tp_cg_uniform_problems().items():
+        _tp_cg_fit(rec.setdefault(name, {}), s, v, mesh, device, main=False)
+    require(rec["max_abs_vs_direct"] < TP_CG_VS_DIRECT_MAX, f"tp_cg against direct: {rec}")
+
+
+def par_sp_ring(rec, device="cuda"):
+    """The cell grid that CompactRbf builds for wendland_1m (1,000,000
+    sites of default_rng(4), its default epsilon, float32), its rows padded
+    to the ranks, on the sp ring: ``fit_cg_ring`` and the single-process
+    ``_cg_pad`` at tol 1e-6 and RING_MAXITER, its dot products summed over
+    the ranks' row blocks in rank order as the ring sums them, then one
+    ``matvec_ring`` on this rank's rows against ``matvec_pad``'s."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import rbf, rbf_compact
+    from gsl_scattered_interpolation_torch.parallel import mesh as pmesh, ring
+
+    rng = np.random.default_rng(4)
+    sites = rng.uniform(-1.0, 1.0, size=(N_WENDLAND, 2))
+    values = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
+    shift, scale = rbf.standardization(sites)
+    eps = 1.0 / float(np.sqrt(40.0 / (np.pi * N_WENDLAND)))  # CompactRbf's default
+    grid, rec["grid_s"] = _timed(lambda: ring.pad_grid_rows(rbf_compact.build_cell_grid(
+        scale * (sites - shift), 1.0 / eps, device=device, dtype=torch.float32), _world()),
+        device)
+    y_pad = rbf_compact.pack_values(grid, torch.tensor(values, dtype=torch.float32,
+                                                       device=device))
+    mesh = pmesh.make_ring_mesh(device)
+    rows = _rank_rows(grid.xs_pad.shape[0], mesh, "sp")
+    phi = rbf.KERNELS["wendland_c2"].phi
+    (lam, res, its), rec["fit_s"] = _timed(lambda: _main_run(rec, lambda: ring.fit_cg_ring(
+        grid, y_pad, mesh, epsilon=eps, tol=1e-6, maxiter=RING_MAXITER)), device)
+    (ref, rs, it), rec["fit_pad_s"] = _timed(lambda: rbf_compact._cg_pad(
+        grid, phi, eps, 0.0, y_pad, 1e-6, RING_MAXITER, blocks=_world()), device)
+    rec["lam_mismatches"] = _mismatches([lam], [ref])
+    if _world() > 1:
+        # The plain _cg_pad sums each dot product at once: another order,
+        # which 100 float32 iterations short of tol amplify.  Read only.
+        plain = rbf_compact._cg_pad(grid, phi, eps, 0.0, y_pad, 1e-6, RING_MAXITER)[0]
+        rec["lam_vs_plain_cg_pad_rel"] = float((lam - plain).abs().max() / plain.abs().max())
+    got, rec["matvec_s"] = _timed(lambda: ring.matvec_ring(
+        grid.xs_pad[rows], y_pad[rows], phi, eps, 0.0, mesh.get_group("sp")), device)
+    want, rec["matvec_pad_s"] = _timed(
+        lambda: rbf_compact.matvec_pad(grid, phi, eps, 0.0, y_pad), device)
+    want = want[rows]
+    rec["matvec_max_rel_err"] = float((got - want).abs().max() / want.abs().max())
+    rec.update(grid=list(grid.shape), rows=rows.stop - rows.start, cap=grid.cap,
+               epsilon=eps, iterations=its, iterations_pad=int(it),
+               rel_residual=res / float(np.linalg.norm(values)),
+               s_per_iteration=rec["fit_s"] / max(its, 1),
+               pad_s_per_iteration=rec["fit_pad_s"] / max(int(it), 1),
+               lam_max_rel_err=float((lam - ref).abs().max() / ref.abs().max()))
+    require(rec["matvec_max_rel_err"] < RING_MATVEC_REL_MAX, f"matvec_ring: {rec}")
+    require(its == int(it), f"fit_cg_ring took {its} iterations, _cg_pad {int(it)}")
+    require(rec["lam_max_rel_err"] < RING_FIT_REL_MAX, f"fit_cg_ring: {rec}")
+
+
+def par_tp_cholesky(rec, device="cuda"):
+    """``cholesky_sharded`` of A = B B^T + n I (n = N_DIRECT, float64,
+    block CHOL_BLOCK), every rank as ``tp``, this rank's rows against
+    ``torch.linalg.cholesky``'s, both timed, and the solve's round trip."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.parallel import cholesky, mesh as pmesh
+
+    n = N_DIRECT
+    gen = torch.Generator(device=device).manual_seed(35)
+    B = torch.randn(n, n, generator=gen, dtype=torch.float64, device=device)
+    A = B @ B.T + n * torch.eye(n, dtype=torch.float64, device=device)
+    del B
+    x_true = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
+    mesh = pmesh.make_mesh(dp=1, tp=_world(), device=device)
+    rows = _rank_rows(n, mesh, "tp")
+    small = A[:CHOL_BLOCK * 2, :CHOL_BLOCK * 2]  # first use of the solver libraries
+    cholesky.cholesky_sharded(small, mesh, block=CHOL_BLOCK)
+    torch.linalg.cholesky(small)
+    L, rec["s"] = _timed(lambda: _main_run(rec, lambda: cholesky.cholesky_sharded(
+        A, mesh, block=CHOL_BLOCK)), device)
+    L_lib, rec["library_s"] = _timed(lambda: torch.linalg.cholesky(A), device)
+    x, rec["solve_s"] = _timed(
+        lambda: cholesky.cholesky_solve_sharded(L, A @ x_true, mesh), device)
+    rec.update(n=n, block=CHOL_BLOCK, rows=rows.stop - rows.start,
+               max_abs_vs_library=float((L - L_lib[rows]).abs().max()),
+               solve_max_err=float((x - x_true).abs().max()))
+    require(rec["max_abs_vs_library"] < CHOL_VS_LIBRARY_MAX * n, f"tp_cholesky: {rec}")
+    require(rec["solve_max_err"] < CHOL_SOLVE_MAX, f"tp_cholesky solve: {rec}")
+
+
+def par_dryrun(rec, device="cuda"):
+    """``dryrun_multichip`` on this rank."""
+    from gsl_scattered_interpolation_torch.parallel import dryrun
+
+    rec.update(dryrun.dryrun_multichip(_world(), device))
+
+
+PARALLEL_CONFIGS = (("dp_interp", par_dp_interp), ("dp_cells", par_dp_cells),
+                    ("tp_cg", par_tp_cg), ("sp_ring", par_sp_ring),
+                    ("tp_cholesky", par_tp_cholesky), ("dryrun", par_dryrun))
+
+
+def phase_parallel_rank(device="cuda", keep_going=False):
+    """Every parallel configuration on the rank of a group that the caller
+    joined, each counted from zero.  Returns {name: record}.  A failed
+    check raises; with ``keep_going`` it is written to the record as
+    ``failed`` and the next configuration runs (every check follows its
+    configuration's last collective, so the ranks stay in step)."""
+    import torch
+
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    out = {}
+    for name, body in PARALLEL_CONFIGS:
+        try:
+            out[name] = _config(name, device, functools.partial(body, device=device))
+        except AssertionError as e:
+            if not keep_going:
+                raise
+            out[name] = {"failed": str(e)}
+            log(f"{name} FAILED: {e}")
+    return out
+
+
+def parallel_main() -> int:
+    """In a fresh process: join a group of one rank under NCCL, run
+    :func:`phase_parallel_rank`, print its records as one JSON line."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    launch.init_group(0, 1, device="cuda")
+    try:
+        out = {"backend": torch.distributed.get_backend(),
+               "world_size": torch.distributed.get_world_size(),
+               "configs": phase_parallel_rank()}
+    finally:
+        torch.distributed.destroy_process_group()
+    out["process_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return 0
+
+
+def phase_parallel():
+    """:func:`parallel_main` in a fresh process; its log lines are shown
+    here, and a failure there fails this script.  Returns its record."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.parallel_main())"],
+        capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S, cwd=here,
+        env={**os.environ, "PYTHONPATH": here})
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"parallel | {line}")
+    require(out.returncode == 0 and bool(lines),
+            f"the parallel phase failed (exit {out.returncode}):\n{out.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def parallel_ranks_main(worlds, out_path=None) -> int:
+    """``--parallel-ranks N ...``: for each N, every parallel configuration
+    at N ranks under NCCL, one card each (``launch.spawn``), each rank's
+    part held against the single-process function as at one rank.  Prints
+    a line for each rank's configurations, and writes every record to
+    ``out_path`` where given."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.kernels import build
+    from gsl_scattered_interpolation_torch.ops import locate
+    from gsl_scattered_interpolation_torch.parallel import launch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
+        return 1
+    build.build(locate.KERNEL)  # once, before the ranks load it
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    runs = {}
+    for world in worlds:
+        t0 = time.perf_counter()
+        ranks = launch.spawn(phase_parallel_rank, world, "cuda", "cuda", True,
+                             timeout=PARALLEL_RANKS_TIMEOUT_S)
+        runs[world] = {"spawn_s": time.perf_counter() - t0, "ranks": ranks}
+        for r, configs in enumerate(ranks):
+            log(f"parallel at {world} ranks, rank {r}: " + json.dumps(
+                {k: {f: v for f, v in c.items() if not isinstance(v, (dict, list))}
+                 for k, c in configs.items()}))
+        failed = sorted({k for c in ranks for k, rec in c.items() if "failed" in rec})
+        log(f"parallel at {world} ranks: {runs[world]['spawn_s']:.2f} s, "
+            + (f"FAILED: {failed}" if failed else "every check passed"))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(runs, f, indent=1)
+    return int(any("failed" in rec for run in runs.values()
+                   for c in run["ranks"] for rec in c.values()))
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2661,6 +3046,17 @@ def main() -> int:
             f"{bnd['kernel']['leaf_call']['kernels_per_call']} in the profiled call")
     log(f"phase locate calls profiled: {time.perf_counter() - t0:.2f} s")
 
+    # 13. The parallel phase: parallel/ at world size 1 under NCCL, in a
+    # fresh process, each configuration counted from zero.
+    t0 = time.perf_counter()
+    ppar = phase_parallel()
+    pcfgs = ppar["configs"]
+    pcfgs["dp_interp"]["headline_queries_per_s"] = host["queries_per_s"]
+    require(pcfgs["dp_interp"]["locate2d_kernels"] == host["locate2d_kernels"],
+            f"dp_interp launched {pcfgs['dp_interp']['locate2d_kernels']} CUDA kernels, "
+            f"the headline's host path {host['locate2d_kernels']}")
+    log(f"phase parallel: {time.perf_counter() - t0:.2f} s")
+
     TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     loc = locate_recs[0]
     loc_shapes = {"headline": loc, "t16001": locate_recs[1],
@@ -2680,7 +3076,9 @@ def main() -> int:
         "cuda_kernels": dev["locate2d_kernels"],
         "cuda_kernels_by_path": {"host": host["locate2d_kernels"],
                                  "device": dev["locate2d_kernels"],
-                                 **{k: r["locate2d_kernels"] for k, r in pcfg.items()}},
+                                 **{k: r["locate2d_kernels"] for k, r in pcfg.items()},
+                                 **{f"parallel_{k}": r["locate2d_kernels"]
+                                    for k, r in pcfgs.items()}},
         "launches_by_path": {"host": host["locate2d_launches"],
                              "device": dev["locate2d_launches"],
                              **{f"at_scale_{k}": r["locate2d_launches"]
@@ -2689,7 +3087,9 @@ def main() -> int:
                                 for k, r in b1m.items()},
                              **{k: r["locate2d_launches"] for k, r in p3d.items()},
                              **{k: r["locate2d_launches"] for k, r in prbf.items()},
-                             **{k: r["locate2d_launches"] for k, r in pcfg.items()}},
+                             **{k: r["locate2d_launches"] for k, r in pcfg.items()},
+                             **{f"parallel_{k}": r["locate2d_launches"]
+                                for k, r in pcfgs.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in loc_shapes.values()),
         "weights_max_abs_err": max(r["weights_max_abs_err"] for r in loc_shapes.values()),
         "ms": loc["ms"],
@@ -2729,7 +3129,9 @@ def main() -> int:
                                 for k, r in b1m.items()},
                              **{k: r["candmath2d_launches"] for k, r in p3d.items()},
                              **{k: r["candmath2d_launches"] for k, r in prbf.items()},
-                             **{k: r["candmath2d_launches"] for k, r in pcfg.items()}},
+                             **{k: r["candmath2d_launches"] for k, r in pcfg.items()},
+                             **{f"parallel_{k}": r["candmath2d_launches"]
+                                for k, r in pcfgs.items()}},
         "max_abs_err": max(
             r["max_abs_err"] for rs in (*cand_recs.values(), compact_recs) for r in rs
         ),
@@ -2751,6 +3153,7 @@ def main() -> int:
     log(f"3D summary: {json.dumps(p3d)}")
     log(f"RBF summary: {json.dumps(prbf)}")
     log(f"structured summary: {json.dumps(pcfg)}")
+    log(f"parallel summary: {json.dumps(ppar)}")
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2763,4 +3166,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on CUDA cards.")
+    ap.add_argument("--parallel-ranks", type=int, nargs="+", metavar="N",
+                    help="only the parallel phase, at N ranks on N cards, for each N")
+    ap.add_argument("--out", help="with --parallel-ranks: write every record here (JSON)")
+    args = ap.parse_args()
+    if args.parallel_ranks:
+        sys.exit(parallel_ranks_main(args.parallel_ranks, args.out))
     sys.exit(main())

@@ -16,6 +16,9 @@ Layout:
              (hull, Voronoi, Qhull import), surface (alpha shapes),
              thinning; convert (fitted JAX state into the port's)
   kernels/   CUDA sources (csrc/) and their nvcc build
+  parallel/  sharded paths on torch.distributed, one process per rank:
+             dp-sharded evaluation, tp-sharded RBF CG and Cholesky, the
+             sp compact-RBF ring
   utils/     errors, machine constants, rng, fixtures, integrity checks,
              serialize (.npz), config (environment), profiling, testing
 
@@ -25,7 +28,7 @@ The JAX package's ``setup_x64`` has no counterpart: each entry point takes
 """
 
 from .version import __version__  # noqa: F401
-from . import models, ops, utils  # noqa: F401
+from . import models, ops, parallel, utils  # noqa: F401
 from .models.interp1d import Interp1D, Spline1D, interp, spline  # noqa: F401
 from .models.interp2d import Interp2D, Spline2D, interp2d, spline2d  # noqa: F401
 from .models.scattered import ScatteredInterp  # noqa: F401

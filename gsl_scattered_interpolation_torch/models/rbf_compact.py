@@ -170,13 +170,25 @@ def matvec_pad(grid: CellGrid, phi, eps, smooth, v_pad):
     return out
 
 
-def _cg_pad(grid, phi, eps, smooth, y_pad, tol, maxiter):
+def sum_in_order(parts):
+    """parts[0] + parts[1] + ..., added left to right."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _cg_pad(grid, phi, eps, smooth, y_pad, tol, maxiter, blocks=1):
     """CG on the padded layout; scalars reduce over real slots only:
-    (x, r.r, iterations)."""
+    (x, r.r, iterations).  With ``blocks`` > 1 each dot product is the
+    sum, in order, of its sums over ``blocks`` equal row blocks: the
+    sharded ring's arithmetic over as many ranks."""
     mask = (grid.slot_site >= 0).to(y_pad.dtype)
 
     def dot(a, b):
-        return torch.sum(a * b * mask)
+        if blocks == 1:
+            return torch.sum(a * b * mask)
+        return sum_in_order([torch.sum(t) for t in (a * b * mask).chunk(blocks)])
 
     def mv(v):
         return matvec_pad(grid, phi, eps, smooth, v) * mask

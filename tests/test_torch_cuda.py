@@ -688,3 +688,43 @@ def test_interp2d_on_card_matches_cpu(cuda):
             a, b = getattr(ours, op)(xq, yq).cpu(), getattr(ref, op)(xq, yq)
             scale = max(1.0, float(b.nan_to_num().abs().max()))
             torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * scale, equal_nan=True)
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """This process as the one rank of an NCCL group, left again after the
+    test."""
+    from gsl_scattered_interpolation_torch.parallel import launch
+
+    launch.init_group(0, 1, device="cuda")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_sharded_paths_at_one_rank_equal_single_process(nccl_rank):
+    from gsl_scattered_interpolation_torch.models import rbf
+    from gsl_scattered_interpolation_torch.parallel import mesh as pmesh, sharding
+
+    mesh = pmesh.make_mesh(device="cuda")
+    assert torch.distributed.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+    tri = _tri(1500, 3, "cuda")
+    resp = torch.rand(tri.points_raw.shape[0], generator=torch.Generator().manual_seed(3)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.rand(70_001, 2, generator=gen, device="cuda") * 1.2 - 0.6
+    before = locate.locate2d_cuda.launches
+    got = sharding.interp_sharded(tri, resp, q, mesh)
+    torch.cuda.synchronize()
+    assert locate.locate2d_cuda.launches == before + 1
+    torch.testing.assert_close(got, device_tri.interp(tri, resp, q), rtol=0, atol=0)
+
+    rng = np.random.default_rng(1)
+    sites = rng.uniform(-0.5, 0.5, size=(384, 2))
+    values = np.sin(4 * sites[:, 0]) + sites[:, 1]
+    lam = sharding.rbf_fit_cg_sharded(sites, values, mesh, epsilon=6.0, tol=1e-12,
+                                      maxiter=2000)
+    ref, _ = rbf._cg_matfree(torch.tensor(sites, device="cuda"),
+                             torch.tensor(values, device="cuda"),
+                             rbf.KERNELS["wendland_c2"].phi, 6.0, 0.0, 1e-12, 2000, 4096)
+    torch.testing.assert_close(lam, ref, rtol=0, atol=1e-10)

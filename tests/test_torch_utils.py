@@ -277,7 +277,8 @@ def _reference_submodules(subpackage):
     return names
 
 
-SUBMODULES = [(sub, name) for sub in ("models", "utils") for name in _reference_submodules(sub)]
+SUBMODULES = [(sub, name) for sub in ("models", "utils", "parallel")
+              for name in _reference_submodules(sub)]
 
 
 @pytest.fixture(scope="module")
@@ -300,7 +301,7 @@ def port_attributes():
 
 
 def test_reference_exposes_submodules():
-    assert len(SUBMODULES) == 16
+    assert len(SUBMODULES) == 18
     for sub, name in SUBMODULES:
         assert getattr(getattr(jgsi, sub), name).__name__ == (
             f"gsl_scattered_interpolation_tpu.{sub}.{name}")
