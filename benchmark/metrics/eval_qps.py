@@ -1,0 +1,5 @@
+"""eval_qps: queries answered in the window over the window's seconds (host clock)."""
+
+
+def read(run):
+    return run["queries"] / run["window_s"] if run["window_s"] > 0 else None
