@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import candmath, geometry, robust
-from ..utils import machine
+from ..utils import machine, profiling
 from ..utils import rng as rng_util
 from . import device_tri, host_tree
 
@@ -1297,6 +1297,9 @@ def triangulate(
                 seed = _seed_state_2d(sites_std, cage_dev, seed_frac)
             except SeedLocateError as err:
                 log.warning("build: %s; building without a seed", err)
+            # The seed's last host read precedes its state's fills: wait
+            # for them, so that ``seed_s`` ends on the seed's own work.
+            profiling.synchronize(cage_dev)
             stats.update(
                 seed_s=time.perf_counter() - t1, seeded=seed is not None
             )

@@ -44,7 +44,7 @@ import torch
 
 from ..ops import geometry
 from ..ops import locate as locate_ops
-from ..utils import errors, machine
+from ..utils import errors, machine, profiling
 
 # Brute-force locate serves triangulations up to this size, and the cell
 # index and the walk larger ones.  The value is the JAX package's TPU
@@ -503,50 +503,58 @@ def locate(
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).  A query that
     used up ``max_steps`` is reported out of domain unless its final
     simplex contains it.  Each call adds the queries it walked and the
-    lockstep steps it took to ``locate.queries`` and ``locate.steps``.
+    lockstep steps it took to ``locate.queries`` and ``locate.steps``, and
+    its reads of ``done`` back to the host to ``locate.host_reads``.  The
+    call is the span ``device_tri.locate``.
     """
-    B = q_raw.shape[0]
-    dev = q_raw.device
-    if tol is None:
-        tol = 16.0 * machine.eps(q_raw.dtype)
-    if start is None:
-        start = walk_start(tri, q_raw)
-    cur = torch.as_tensor(start, device=dev).long()
-    prev = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    outside = torch.zeros(B, dtype=torch.bool, device=dev)
-    faces = torch.arange(tri.dim + 1, device=dev)
-    step = 0
-    while step < max_steps:
-        if step % WALK_DONE_EVERY == 0 and bool(done.all()):
-            break
+    with profiling.span("device_tri.locate"):
+        B = q_raw.shape[0]
+        dev = q_raw.device
+        if tol is None:
+            tol = 16.0 * machine.eps(q_raw.dtype)
+        if start is None:
+            start = walk_start(tri, q_raw)
+        cur = torch.as_tensor(start, device=dev).long()
+        prev = torch.full((B,), -1, dtype=torch.int64, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        outside = torch.zeros(B, dtype=torch.bool, device=dev)
+        faces = torch.arange(tri.dim + 1, device=dev)
+        step = 0
+        while step < max_steps:
+            if step % WALK_DONE_EVERY == 0:
+                locate.host_reads += 1
+                if bool(done.all()):
+                    break
+            w = _weights(tri, cur, q_raw)
+            worst = torch.argmin(w, dim=-1)
+            if step & 1:
+                second = torch.argmin(
+                    torch.where(faces == worst[:, None], torch.inf, w),
+                    dim=-1,
+                )
+                two_neg = torch.sum(w < -tol, dim=-1) > 1
+                worst = torch.where(two_neg, second, worst)
+            inside = torch.all(w >= -tol, dim=-1)
+            nbr = tri.tri_nbrs[cur].gather(1, worst[:, None])[:, 0].long()
+            hit_boundary = (nbr < 0) & ~inside
+            cycling = (nbr == prev) & ~inside
+            advance = ~(done | inside | hit_boundary | cycling)
+            outside = outside | (hit_boundary & ~done)
+            done = ~advance
+            prev = torch.where(advance, cur, prev)
+            # An advancing nbr is >= 0.
+            cur = torch.where(advance, nbr, cur)
+            step += 1
+        locate.queries += B
+        locate.steps += step
         w = _weights(tri, cur, q_raw)
-        worst = torch.argmin(w, dim=-1)
-        if step & 1:
-            second = torch.argmin(
-                torch.where(faces == worst[:, None], torch.inf, w), dim=-1
-            )
-            two_neg = torch.sum(w < -tol, dim=-1) > 1
-            worst = torch.where(two_neg, second, worst)
-        inside = torch.all(w >= -tol, dim=-1)
-        nbr = tri.tri_nbrs[cur].gather(1, worst[:, None])[:, 0].long()
-        hit_boundary = (nbr < 0) & ~inside
-        cycling = (nbr == prev) & ~inside
-        advance = ~(done | inside | hit_boundary | cycling)
-        outside = outside | (hit_boundary & ~done)
-        done = ~advance
-        prev = torch.where(advance, cur, prev)
-        cur = torch.where(advance, nbr, cur)  # an advancing nbr is >= 0
-        step += 1
-    locate.queries += B
-    locate.steps += step
-    w = _weights(tri, cur, q_raw)
-    contained = torch.all(w >= -tol, dim=-1)
-    return cur, w, ~outside & (contained | done)
+        contained = torch.all(w >= -tol, dim=-1)
+        return cur, w, ~outside & (contained | done)
 
 
 locate.queries = 0
 locate.steps = 0
+locate.host_reads = 0
 
 
 def walk_start(tri: DeviceTriangulation, q_raw) -> torch.Tensor:
@@ -1379,46 +1387,60 @@ def locate_cells(
 
     The walk takes exactly the queries that need it, found by one host
     read, so the JAX package's ``fallback_frac`` buffer has no counterpart.
+    That read adds 1 to the module's ``locate_cells_host_reads``.  The
+    scoring, through the mask of the queries to walk, is the span
+    ``device_tri.locate_cells.score``; the read is
+    ``device_tri.locate_cells.select``.
 
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
     """
-    if tri.dim == 3:
-        cid, leaf, bestw, q_std = _locate_cells_score_3d(tri, cells, q_raw)
-    else:
-        G, K = cells.res, cells.k
-        dtype = q_raw.dtype
-        q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
-        cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
-        cid = cell[:, 0] * G + cell[:, 1]
-        rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
-        g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
-        shift = tri.shift.to(dtype)
-        qx = (q_raw[:, 0] - shift[0])[:, None]
-        qy = (q_raw[:, 1] - shift[1])[:, None]
-        c0 = g00 * qx + g01 * qy + b0
-        c1 = g10 * qx + g11 * qy + b1
-        minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
-        minw = torch.where(tid >= 0, minw, -torch.inf)
-        best = torch.argmax(minw, dim=-1, keepdim=True)
-        bestw = minw.gather(1, best)[:, 0]
-        leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
-    w = _weights(tri, leaf, q_raw)
-    # The float32 score is judged at float32's slack, the weights at the
-    # query dtype's.
-    score_dtype = cells.table.dtype if cells.rows is None else cells.rows.dtype
-    contained = bestw >= -4.0 * machine.sqrt_eps(score_dtype)
-    w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(q_raw.dtype), dim=-1)
-    outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
-    if cells.complete:
-        bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (
-            contained & ~w_ok
+    global locate_cells_host_reads
+    with profiling.span("device_tri.locate_cells.score"):
+        if tri.dim == 3:
+            cid, leaf, bestw, q_std = _locate_cells_score_3d(
+                tri, cells, q_raw
+            )
+        else:
+            G, K = cells.res, cells.k
+            dtype = q_raw.dtype
+            q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+            cell = torch.clamp(
+                torch.floor((q_std + 0.5) * G), 0, G - 1
+            ).long()
+            cid = cell[:, 0] * G + cell[:, 1]
+            rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
+            g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
+            shift = tri.shift.to(dtype)
+            qx = (q_raw[:, 0] - shift[0])[:, None]
+            qy = (q_raw[:, 1] - shift[1])[:, None]
+            c0 = g00 * qx + g01 * qy + b0
+            c1 = g10 * qx + g11 * qy + b1
+            minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
+            minw = torch.where(tid >= 0, minw, -torch.inf)
+            best = torch.argmax(minw, dim=-1, keepdim=True)
+            bestw = minw.gather(1, best)[:, 0]
+            leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
+        w = _weights(tri, leaf, q_raw)
+        # The float32 score is judged at float32's slack, the weights at the
+        # query dtype's.
+        score_dtype = (
+            cells.table.dtype if cells.rows is None else cells.rows.dtype
         )
-    else:
-        bad = ~(contained & w_ok)
+        contained = bestw >= -4.0 * machine.sqrt_eps(score_dtype)
+        w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(q_raw.dtype), dim=-1)
+        outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
+        if cells.complete:
+            bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (
+                contained & ~w_ok
+            )
+        else:
+            bad = ~(contained & w_ok)
     in_domain = contained & w_ok
     if fallback == "none":
         return leaf, w, in_domain
-    idx = torch.nonzero(bad)[:, 0]
+    with profiling.span("device_tri.locate_cells.select"):
+        locate_cells_host_reads += 1
+        idx = torch.nonzero(bad)[:, 0]
     if idx.numel() == 0:
         return leaf, w, in_domain
     sub_leaf, sub_w, sub_in = locate(
@@ -1428,6 +1450,10 @@ def locate_cells(
     w[idx] = sub_w
     in_domain[idx] = sub_in & torch.all(sub_w > -0.5, dim=-1)
     return leaf, w, in_domain
+
+
+# The host reads of ``locate_cells``'s walk mask: one a call that may walk.
+locate_cells_host_reads = 0
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import device_cavity, device_delaunay, device_tri, host_tree
-from ..utils import errors
+from ..utils import errors, profiling
 
 DEFAULT = host_tree.DEFAULT
 NOSTANDARDIZE = host_tree.NOSTANDARDIZE
@@ -42,7 +42,9 @@ class ScatteredInterp:
     ("cuda" unless the caller asks for the CPU).  dtype: the precision of
     the device builds' predicates and of the query path; ``None`` picks
     float32 on CUDA (the fast path) and float64 on the CPU (GSL parity);
-    ``"accurate"`` is float64 on every device.
+    ``"accurate"`` is float64 on every device.  ``build_stats``: the
+    device and cavity builds' counts and the host seconds of their phases
+    (``triangulate``'s ``stats``); empty for the host engine.
     """
 
     name = "linear_simplex"
@@ -82,13 +84,14 @@ class ScatteredInterp:
         self.engine = engine
         self.dim = d
         self.n_sites = n
+        self.build_stats = {}
         if engine in ("device", "cavity"):
             build = (
                 device_delaunay if engine == "device" else device_cavity
             ).triangulate
             tri, self.shuffle = build(
                 sites, lo=lo, hi=hi, flags=flags, key=key, dtype=dtype,
-                grid_res=grid_res, device=device,
+                grid_res=grid_res, device=device, stats=self.build_stats,
             )
             self.tri = tri.cast(dtype)
             self.response = device_tri.response_for_build(
@@ -140,16 +143,18 @@ class ScatteredInterp:
         Values fade to 0 toward and outside the data hull (cage-vertex
         zeros, linear_simplex.c:697-706); out-of-cage queries return 0.
         ``strict=True`` raises DomainError if any query is outside the cage.
+        The call is the span ``scattered.eval``.
         """
-        q = self._queries(q)
-        vals = device_tri.interp(
-            self.tri, self.response, q, cells=self._get_cells()
-        )
-        if strict:
-            _, _, ok = self._locate(q)
-            if not bool(torch.all(ok)):
-                raise errors.DomainError("query outside the cage domain")
-        return vals
+        with profiling.span("scattered.eval"):
+            q = self._queries(q)
+            vals = device_tri.interp(
+                self.tri, self.response, q, cells=self._get_cells()
+            )
+            if strict:
+                _, _, ok = self._locate(q)
+                if not bool(torch.all(ok)):
+                    raise errors.DomainError("query outside the cage domain")
+            return vals
 
     def eval_e(self, q):
         """(values [B], status [B]): SUCCESS, or EDOM outside the cage."""

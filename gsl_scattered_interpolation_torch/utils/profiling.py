@@ -3,8 +3,9 @@
 The reference's only instrumentation is the accel hit/miss counters
 (gsl_interp.h:41-46).  Here: a wall-clock block timer that waits for the
 card before it reads the clock, so timings are honest under PyTorch's
-asynchronous launches, and a wrapper around ``torch.profiler`` that writes
-a Chrome trace.
+asynchronous launches, a wrapper around ``torch.profiler`` that writes
+a Chrome trace, and :func:`span`, which names a stretch of the program on
+the profiler's clock while a profiler records.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# What :func:`span` returns while no profiler records.
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _cuda_devices(obj, out: set) -> set:
@@ -81,6 +86,18 @@ class Timer:
             for k in sorted(self.times)
         ]
         return "\n".join(lines)
+
+
+def span(name: str):
+    """A context manager that records the block as a user annotation named
+    ``name`` while a ``torch.profiler`` session records (the benchmark's
+    traced runs, :func:`trace`), on the profiler's clock beside the card's
+    kernels; spans nest by time on the calling thread.  With no profiler
+    recording it costs one bool read: ``record_function`` itself costs
+    microseconds per call even then."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
