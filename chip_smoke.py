@@ -30,9 +30,11 @@ plain version on the chunked route's compacted rows, then
 ``ScatteredInterp(engine="device")`` of 1,000,000 sites in float32, seeded
 from Qhull, counted from zero, checked as the 200k build is, with 10
 batches of a million queries through its cell index against the locate
-kernel and scipy, and the same in float64 with one batch.  Last, the 3D
-phase at bench.py's sizes, each path counted from zero (neither kernel is
-on it): ``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
+kernel and scipy, the cell-scoring kernel against its plain version at
+2*10^7 queries of its float32 index (and one eval profiled), and the same
+in float64 with one batch.  Last, the 3D phase at bench.py's sizes, each
+path counted from zero (no kernel is on it):
+``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
 (and a salted rebuild) and float64, held against scipy; the 3D cell index
 under 10 batches of 2,000,000 queries, against the walk and scipy; and
 100,000 sites, with a profiled build.  Last, the RBF phase at bench.py's
@@ -66,6 +68,11 @@ not gated, the same fit on two sets of uniform random sites); the sp ring's fit
 and matvec on wendland_1m's cell grid against the single-process ones; the
 tp-sharded Cholesky at n = 8,192 beside ``torch.linalg.cholesky``; and
 ``dryrun_multichip``.  Everything is timed.
+
+    python3 chip_smoke.py --cells2d
+
+runs only the cell kernel's record at the 1M phase's index (2*10^7
+queries, as in the benchmark's 1M cell).
 
     python3 chip_smoke.py --parallel-ranks 2 4 [--out records.json]
 
@@ -126,6 +133,8 @@ F64_OPS_PER_S = 17e12
 HBM_BYTES_PER_S = 3.35e12
 LOCATE_OPS_PER_PAIR = 13   # 4 mul, 4 add, 2 sub, 2 min, 1 compare
 LOCATE_WEIGHT_OPS = 12    # per query: 2 sub, 4 mul, 5 add, 1 sub (its weights)
+CELLS_BATCH = 20_000_000  # the cell kernel's record: the 1M cell's batch (eval_20m)
+CELLS_SEED = 9
 SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: kernel_ms
 
 
@@ -242,6 +251,69 @@ def locate_bound_ms(n_q: int, n_t: int, weights: bool = False):
     ops_ms = 1e3 * ops / F32_OPS_PER_S
     bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def cells2d_bound_ms(n_q: int, K: int) -> float:
+    """Least ms for the cell kernel on n_q queries: each query's 8 B, its
+    7K * 4 B candidate row, its leaf's 32 B affine row and 1 B of overflow
+    read once, and 22 B of results (leaf 8, weights 12, two flags)
+    written."""
+    return 1e3 * n_q * (8 + 28 * K + 32 + 1 + 22) / HBM_BYTES_PER_S
+
+
+def cells2d_record(si, n_q: int = CELLS_BATCH):
+    """The cell kernel against its plain version at ``n_q`` float32 queries
+    on the facade ``si``'s cell index: leaf, weights, in_domain and the walk
+    mask to the bit; the kernel's time by events and its device time, its
+    bound, the plain version's time on the card; one ``si.eval`` counted
+    from zero (one launch) and one profiled, with the device time of its
+    kernels by name."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.ops import cells as cells_ops
+
+    tri, cells = si.tri, si._get_cells()
+    q = uniform_queries(n_q, seed=CELLS_SEED, device="cuda")[0]
+    args = (q, tri.shift, tri.scale, cells.table, cells.overflow, tri.affine,
+            cells.res, cells.k, cells.complete)
+
+    def launch():
+        return cells_ops.cells2d_cuda(*args)
+
+    def plain():
+        return device_tri._locate_cells_score_2d(tri, cells, q)
+
+    got, want = launch(), plain()
+    torch.cuda.synchronize()
+    names = ("leaf", "w", "in_domain", "bad")
+    rec = {"B": n_q, "G": cells.res, "K": cells.k, "T": tri.n_tris,
+           "table_MB": cells.table.numel() * 4 / 1e6, "complete": cells.complete,
+           "mismatches": {k: int((g != p).reshape(n_q, -1).any(-1).sum())
+                          for k, g, p in zip(names, got, want)},
+           "bad_share": float(got[3].float().mean())}
+    del got, want
+    rec["ms"] = time_ms(launch, 10)
+    rec["device_ms"] = kernel_ms(launch)
+    rec["plain_ms"] = time_ms(plain, 2)
+    rec["bound_ms"], rec["bound_by"] = cells2d_bound_ms(n_q, cells.k), "bytes"
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    cells_ops.cells2d_cuda.launches = 0
+    si.eval(q)
+    torch.cuda.synchronize()
+    rec["launches_per_eval"] = cells_ops.cells2d_cuda.launches
+    busy_ms, wall_ms, rows = profile_build(lambda: si.eval(q))
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+    rec["eval"] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
+                   "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top}}
+    # Late in a long process the profiler can miss this library's kernel
+    # (it has missed locate2d's too): recorded, not gated; the counter gates.
+    kernel = [v for k, v in rows.items() if "cells2d_kernel" in k]
+    rec["eval"]["kernel_profiled_ms"] = kernel[0][1] if kernel else None
+    log(f"cells2d kernel vs plain: {json.dumps(rec)}")
+    require(not any(rec["mismatches"].values()), f"cells2d disagrees with its plain version: {rec}")
+    require(rec["launches_per_eval"] == 1, f"{rec['launches_per_eval']} cells2d launches an eval")
+    return rec
 
 
 def candmath_bound_ms(n_rows: int, double: bool):
@@ -961,11 +1033,13 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda",
     from gsl_scattered_interpolation_torch.models import device_tri
     from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
     from gsl_scattered_interpolation_torch.ops import candmath, locate
+    from gsl_scattered_interpolation_torch.ops import cells as cells_ops
 
     values = headline_values(sites)
     f32 = dtype == torch.float32
     locate.locate2d_cuda.launches = 0
     candmath.edge_candidates_math_cuda.launches = 0
+    cells_ops.cells2d_cuda.launches = 0
     sync(device)
     t0 = time.perf_counter()
     si = ScatteredInterp(sites, values, flags=NOSTANDARDIZE, engine="device",
@@ -1002,8 +1076,12 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda",
         "walk_steps": device_tri.locate.steps - steps,
         "locate2d_launches": locate.locate2d_cuda.launches,
         "candmath2d_launches": candmath.edge_candidates_math_cuda.launches,
+        "cells2d_launches": cells_ops.cells2d_cuda.launches,
     }
     require(T == 2 * sites.shape[0] + 1, f"{T} simplexes")
+    on_card = f32 and si.tri.device.type == "cuda"  # the kernel's route
+    require(rec["cells2d_launches"] == (n_batches if on_card else 0),
+            f"{rec['cells2d_launches']} cells2d launches for {n_batches} {rec['dtype']} batches")
     require(rec["candmath2d_launches"] > 0, "the build never launched candmath2d")
 
     out0 = outs[0][:N_CHECK]
@@ -1083,18 +1161,11 @@ def build_1m(sites, dtype, n_batches: int, scipy_own, scipy_exact=None,
     ran.)  Returns the record."""
     import torch
 
-    from gsl_scattered_interpolation_torch.models import device_delaunay as dd
-
     require_same_points(sites, dtype, build_points(sites, dtype))
-    stats = {}
-    triangulate = dd.triangulate
-    dd.triangulate = functools.partial(triangulate, stats=stats)
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        rec, si = at_scale_query(sites, dtype, n_batches, scipy_tri=scipy_own,
-                                 device=device, grid_res=GRID_RES_1M)
-    finally:
-        dd.triangulate = triangulate
+    torch.cuda.reset_peak_memory_stats()
+    rec, si = at_scale_query(sites, dtype, n_batches, scipy_tri=scipy_own,
+                             device=device, grid_res=GRID_RES_1M)
+    stats = si.build_stats  # triangulate's stats
     rec["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
     rec.update({k: stats[k] for k in BUILD_PHASES})
     rec["freeze_s"] = rec["build_s"] - sum(stats[k] for k in BUILD_PHASES)
@@ -1109,6 +1180,8 @@ def build_1m(sites, dtype, n_batches: int, scipy_own, scipy_exact=None,
     check_triangulation(si.tri, sites, dtype, rec,
                         scipy_ref=scipy_exact if f32 else scipy_own)
     rec["checks_s"] = time.perf_counter() - t0
+    if f32:
+        rec["cells2d"] = cells2d_record(si)
     log(f"build at 1M: {json.dumps(rec)}")
     return rec
 
@@ -1187,24 +1260,18 @@ def cavity_facade(sites, dtype, device, salt: float = 0.0):
     import torch
 
     from gsl_scattered_interpolation_torch import ScatteredInterp
-    from gsl_scattered_interpolation_torch.models import device_cavity as dc
     from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
     from gsl_scattered_interpolation_torch.ops import candmath, locate
 
-    stats = {}
-    triangulate = dc.triangulate
-    dc.triangulate = functools.partial(triangulate, stats=stats)
     locate.locate2d_cuda.launches = 0
     candmath.edge_candidates_math_cuda.launches = 0
-    try:
-        sync(device)
-        t0 = time.perf_counter()
-        si = ScatteredInterp(sites + salt, values_3d(sites), flags=NOSTANDARDIZE,
-                             engine="cavity", dtype=dtype, device=device)
-        sync(device)
-        build_s = time.perf_counter() - t0
-    finally:
-        dc.triangulate = triangulate
+    sync(device)
+    t0 = time.perf_counter()
+    si = ScatteredInterp(sites + salt, values_3d(sites), flags=NOSTANDARDIZE,
+                         engine="cavity", dtype=dtype, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    stats = si.build_stats  # triangulate's stats
     w = stats["winners"]
     rec = {"dtype": str(dtype).split(".")[-1], "n_sites": sites.shape[0],
            "n_tets": si.n_simplexes, "build_s": build_s,
@@ -1443,10 +1510,11 @@ def _timed(fn, device):
 def _counted():
     """{kernel: its wrapper}, each wrapper carrying its launch count (looked
     up now: a Recorder may stand in for the tridiagonal wrappers)."""
-    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
+    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag
 
     return {"locate2d": locate.locate2d_cuda,
             "candmath2d": candmath.edge_candidates_math_cuda,
+            "cells2d": cells.cells2d_cuda,
             "tridiag": tridiag.thomas_cuda,
             "tridiag_partitioned": tridiag.partitioned_cuda}
 
@@ -2900,7 +2968,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     from gsl_scattered_interpolation_torch.kernels import build
-    from gsl_scattered_interpolation_torch.ops import candmath, locate, tridiag
+    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag
 
     # 1. Device.
     t0 = time.perf_counter()
@@ -2918,7 +2986,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name).strip(), time.perf_counter() - t0
 
-    names = (locate.KERNEL, candmath.KERNEL, tridiag.KERNEL)
+    names = (locate.KERNEL, candmath.KERNEL, tridiag.KERNEL, cells.KERNEL)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(timed_build, names)))
     for name, (out, secs) in built.items():
@@ -3064,6 +3132,7 @@ def main() -> int:
                   "thin_200k": pcfg["thin_200k"]["device_float32"]["kernel"]}
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
+    c2d = b1m["f32"]["cells2d"]
     kernels = [{
         "name": locate.KERNEL,
         "route": "cuda",
@@ -3145,6 +3214,29 @@ def main() -> int:
         "float64": {k: c64[k] for k in TIMES},
         "compact_rows_float32": [{"rows": r["rows"], **{k: r[k] for k in TIMES}}
                                  for r in compact_recs],
+    }, {
+        "name": cells.KERNEL,
+        "route": "cuda",
+        "source": "gsl_scattered_interpolation_torch/kernels/csrc/cells2d.cu",
+        # No Pallas kernel: the JAX package's XLA ops of the 2D branch.
+        "replaces": "gsl_scattered_interpolation_tpu/models/device_tri.py:1668",
+        "launches": at_scale["f32_200k"]["cells2d_launches"],
+        # null where a phase keeps no count of it (the 3D phase).
+        "launches_by_path": {**{f"at_scale_{k}": r["cells2d_launches"]
+                                for k, r in at_scale.items()},
+                             **{f"build_1m_{k}": r["cells2d_launches"]
+                                for k, r in b1m.items()},
+                             **{k: r.get("cells2d_launches") for k, r in p3d.items()},
+                             **{k: r.get("cells2d_launches") for k, r in prbf.items()},
+                             **{k: r.get("cells2d_launches") for k, r in pcfg.items()},
+                             **{f"parallel_{k}": r.get("cells2d_launches")
+                                for k, r in pcfgs.items()}},
+        "max_abs_err": float(any(c2d["mismatches"].values())),
+        **{k: c2d[k] for k in TIMES},
+        "library_ms": None,  # no one PyTorch call computes this function
+        "shape": f"B={c2d['B']} G={c2d['G']} K={c2d['K']}",
+        "launches_per_eval": c2d["launches_per_eval"],
+        "eval": c2d["eval"],
     }, *tridiag_summary(pcfg)]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was not launched on its main paths")
@@ -3165,6 +3257,32 @@ def main() -> int:
     return 0
 
 
+def facade_1m():
+    """bench.py's 1M sites through ``ScatteredInterp(engine="device")`` in
+    float32 with ``grid_res`` 512, as the 1M phase builds them."""
+    import torch
+
+    from gsl_scattered_interpolation_torch import ScatteredInterp
+    from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
+
+    sites = np.random.default_rng(SEED_1M).uniform(-0.5, 0.5, size=(N_1M, 2))
+    return ScatteredInterp(sites, headline_values(sites), flags=NOSTANDARDIZE,
+                           engine="device", dtype=torch.float32, grid_res=GRID_RES_1M)
+
+
+def cells2d_main() -> int:
+    """Only the cell kernel's record (:func:`cells2d_record`) on the 1M
+    facade's index; the record is the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
+        return 1
+    rec = cells2d_record(facade_1m())
+    print(json.dumps(rec))
+    return 0
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -3172,7 +3290,11 @@ if __name__ == "__main__":
     ap.add_argument("--parallel-ranks", type=int, nargs="+", metavar="N",
                     help="only the parallel phase, at N ranks on N cards, for each N")
     ap.add_argument("--out", help="with --parallel-ranks: write every record here (JSON)")
+    ap.add_argument("--cells2d", action="store_true",
+                    help="only the cell kernel's record, at the 1M sites' index")
     args = ap.parse_args()
+    if args.cells2d:
+        sys.exit(cells2d_main())
     if args.parallel_ranks:
         sys.exit(parallel_ranks_main(args.parallel_ranks, args.out))
     sys.exit(main())

@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import cells as cells_ops
 from ..ops import geometry
 from ..ops import locate as locate_ops
 from ..utils import errors, machine, profiling
@@ -1320,6 +1321,67 @@ def _build_cell_index_device(
     )
 
 
+def _cells_of(tri: DeviceTriangulation, G: int, q_raw):
+    """(q_std [B, d], cid [B] int64): the standardized queries and the ids
+    of their cells of the G^d grid, clamped into it."""
+    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
+    cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
+    cid = cell[:, 0]
+    for j in range(1, tri.dim):
+        cid = cid * G + cell[:, j]
+    return q_std, cid
+
+
+def _settle(
+    tri: DeviceTriangulation, cells: CellIndex, q_raw, cid, leaf, bestw, q_std
+):
+    """(w, in_domain, bad) of the best candidates: the leaves' weights in
+    the query dtype, and the queries ``locate_cells`` walks."""
+    w = _weights(tri, leaf, q_raw)
+    # The float32 score is judged at float32's slack, the weights at the
+    # query dtype's.
+    score_dtype = (
+        cells.table.dtype if cells.rows is None else cells.rows.dtype
+    )
+    contained = bestw >= -4.0 * machine.sqrt_eps(score_dtype)
+    w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(q_raw.dtype), dim=-1)
+    outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
+    if cells.complete:
+        bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (
+            contained & ~w_ok
+        )
+    else:
+        bad = ~(contained & w_ok)
+    return w, contained & w_ok, bad
+
+
+def _locate_cells_score_2d(tri: DeviceTriangulation, cells: CellIndex, q_raw):
+    """2D candidate scoring: (leaf [B] int64, weights [B, 3], in_domain [B],
+    bad [B]), ``bad`` being the queries :func:`locate_cells` walks.
+
+    One [B, 7K] row gather, sliced field-major, scores every candidate in
+    the query dtype; the best is ``torch.argmax``'s.  The plain version of
+    ``kernels/csrc/cells2d.cu`` (``ops.cells.cells2d_cuda``), which agrees
+    with it to the bit, and the route of float64 queries and of the CPU.
+    """
+    K = cells.k
+    dtype = q_raw.dtype
+    q_std, cid = _cells_of(tri, cells.res, q_raw)
+    rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
+    g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
+    shift = tri.shift.to(dtype)
+    qx = (q_raw[:, 0] - shift[0])[:, None]
+    qy = (q_raw[:, 1] - shift[1])[:, None]
+    c0 = g00 * qx + g01 * qy + b0
+    c1 = g10 * qx + g11 * qy + b1
+    minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
+    minw = torch.where(tid >= 0, minw, -torch.inf)
+    best = torch.argmax(minw, dim=-1, keepdim=True)
+    bestw = minw.gather(1, best)[:, 0]
+    leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
+    return leaf, *_settle(tri, cells, q_raw, cid, leaf, bestw, q_std)
+
+
 def _locate_cells_score_3d(tri: DeviceTriangulation, cells: CellIndex, q_raw):
     """3D candidate scoring: (cid, leaf, best min-weight, q_std), [B] each.
 
@@ -1330,12 +1392,10 @@ def _locate_cells_score_3d(tri: DeviceTriangulation, cells: CellIndex, q_raw):
     to about 330 and 200 MB (JAX: ``lax.map`` over 262,144 and 8,192, sized
     for the TPU's lane padding).
     """
-    G, K = cells.res, cells.k
+    K = cells.k
     dtype = q_raw.dtype
     B = q_raw.shape[0]
-    q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
-    cell = torch.clamp(torch.floor((q_std + 0.5) * G), 0, G - 1).long()
-    cid = (cell[:, 0] * G + cell[:, 1]) * G + cell[:, 2]
+    q_std, cid = _cells_of(tri, cells.res, q_raw)
     dq = q_raw - tri.shift.to(dtype)
     packed = cells.rows is None
     block = 262144 if packed else 65536
@@ -1376,14 +1436,16 @@ def locate_cells(
     """Batched location by the cell index, with the walk as fallback.
 
     One row gather per query scores the candidates of its cell in the query
-    dtype (:func:`_locate_cells_score_3d` in 3D).  The best one's weights
-    come from the anchored affine maps in the query dtype.  Queries that
-    the index cannot settle walk from their cell's hint for at most
-    ``fallback_steps`` steps: those in an overflowed cell or outside the
-    cube that no candidate contains, those whose score and weights
-    disagree, and, for an incomplete index, every query that no candidate
-    contains.  ``fallback="none"`` skips the walk: not-contained queries
-    then report in_domain=False.
+    dtype (:func:`_locate_cells_score_2d`, :func:`_locate_cells_score_3d`);
+    2D float32 queries on the card take the kernel ``ops.cells.cells2d_cuda``
+    instead, which reads each row once and gives the same bits.  The best
+    one's weights come from the anchored affine maps in the query dtype.
+    Queries that the index cannot settle walk from their cell's hint for
+    at most ``fallback_steps`` steps: those in an overflowed cell or
+    outside the cube that no candidate contains, those whose score and
+    weights disagree, and, for an incomplete index, every query that no
+    candidate contains.  ``fallback="none"`` skips the walk: not-contained
+    queries then report in_domain=False.
 
     The walk takes exactly the queries that need it, found by one host
     read, so the JAX package's ``fallback_frac`` buffer has no counterpart.
@@ -1400,42 +1462,23 @@ def locate_cells(
             cid, leaf, bestw, q_std = _locate_cells_score_3d(
                 tri, cells, q_raw
             )
-        else:
-            G, K = cells.res, cells.k
-            dtype = q_raw.dtype
-            q_std = geometry.standardize(q_raw, tri.shift, tri.scale)
-            cell = torch.clamp(
-                torch.floor((q_std + 0.5) * G), 0, G - 1
-            ).long()
-            cid = cell[:, 0] * G + cell[:, 1]
-            rows = cells.table[cid].to(dtype)  # one [B, 7K] gather
-            g00, g01, g10, g11, b0, b1, tid = rows.split(K, dim=1)
-            shift = tri.shift.to(dtype)
-            qx = (q_raw[:, 0] - shift[0])[:, None]
-            qy = (q_raw[:, 1] - shift[1])[:, None]
-            c0 = g00 * qx + g01 * qy + b0
-            c1 = g10 * qx + g11 * qy + b1
-            minw = torch.minimum(torch.minimum(c0, c1), 1.0 - c0 - c1)
-            minw = torch.where(tid >= 0, minw, -torch.inf)
-            best = torch.argmax(minw, dim=-1, keepdim=True)
-            bestw = minw.gather(1, best)[:, 0]
-            leaf = torch.clamp(tid.gather(1, best)[:, 0], min=0).long()
-        w = _weights(tri, leaf, q_raw)
-        # The float32 score is judged at float32's slack, the weights at the
-        # query dtype's.
-        score_dtype = (
-            cells.table.dtype if cells.rows is None else cells.rows.dtype
-        )
-        contained = bestw >= -4.0 * machine.sqrt_eps(score_dtype)
-        w_ok = torch.all(w >= -4.0 * machine.sqrt_eps(q_raw.dtype), dim=-1)
-        outside_sq = torch.any(torch.abs(q_std) > 0.5, dim=-1)
-        if cells.complete:
-            bad = ((cells.overflow[cid] | outside_sq) & ~contained) | (
-                contained & ~w_ok
+            w, in_domain, bad = _settle(
+                tri, cells, q_raw, cid, leaf, bestw, q_std
+            )
+        elif (
+            q_raw.device.type == "cuda"
+            and q_raw.dtype == cells.table.dtype == tri.affine.dtype
+            == torch.float32
+        ):
+            leaf, w, in_domain, bad = cells_ops.cells2d_cuda(
+                q_raw.contiguous(), tri.shift, tri.scale, cells.table,
+                cells.overflow, tri.affine, cells.res, cells.k,
+                cells.complete,
             )
         else:
-            bad = ~(contained & w_ok)
-    in_domain = contained & w_ok
+            leaf, w, in_domain, bad = _locate_cells_score_2d(
+                tri, cells, q_raw
+            )
     if fallback == "none":
         return leaf, w, in_domain
     with profiling.span("device_tri.locate_cells.select"):
@@ -1443,8 +1486,10 @@ def locate_cells(
         idx = torch.nonzero(bad)[:, 0]
     if idx.numel() == 0:
         return leaf, w, in_domain
+    q_walk = q_raw[idx]
+    _, cid = _cells_of(tri, cells.res, q_walk)
     sub_leaf, sub_w, sub_in = locate(
-        tri, q_raw[idx], start=cells.hint[cid[idx]], max_steps=fallback_steps
+        tri, q_walk, start=cells.hint[cid], max_steps=fallback_steps
     )
     leaf[idx] = sub_leaf
     w[idx] = sub_w

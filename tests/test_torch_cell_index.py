@@ -171,6 +171,75 @@ def test_locate_cells_matches_jax_and_dense():
     np.testing.assert_allclose(vd.numpy(), jv, rtol=0, atol=1e-9)
 
 
+def _jax_cells(jtri, jc, Q, monkeypatch):
+    """(leaf, w, in_domain, bad) of the JAX package's cell scoring: its
+    ``fallback="none"`` outputs, and the queries its walk is handed.  Under
+    ``jax.disable_jit`` its ``lax.cond`` runs the taken branch eagerly, and a
+    stand-in walk marks the leaves it would set with -7; the walk's buffer
+    pads with query 0, so query 0 must be one that walks."""
+    import jax
+
+    jl, jw, ji = (np.asarray(a) for a in jdt.locate_cells(jtri, jc, jnp.asarray(Q), fallback="none"))
+
+    def marker(tri, q, start=None, max_steps=128, tol=None):
+        n = q.shape[0]
+        return jnp.full(n, -7, jnp.int32), jnp.zeros((n, 3)), jnp.zeros(n, bool)
+
+    monkeypatch.setattr(jdt, "locate", marker)
+    with jax.disable_jit():
+        marked = np.asarray(jdt.locate_cells(jtri, jc, jnp.asarray(Q))[0])
+    assert marked[0] == -7
+    return jl, jw, ji, marked == -7
+
+
+@pytest.mark.parametrize("index", ["complete", "overflow", "budget"])
+def test_locate_cells_score_2d_matches_jax(monkeypatch, index):
+    # The plain 2D scoring (the cell kernel's yardstick on the card) against
+    # the JAX package's, on test_locate_cells_matches_jax_and_dense's
+    # inputs, with query 0 outside the cage: K = 16 (complete), K = 2
+    # (most cells overflow) and a budget-spilled, incomplete device index.
+    if index == "budget":
+        jtri, tri = _tri(600, 11)
+        jc = jdt._build_cell_index_device(jtri, pair_budget_override=1)
+        c = dt._build_cell_index_device(tri, pair_budget_override=1)
+        assert not c.complete
+    else:
+        K = 16 if index == "complete" else 2
+        jtri, tri = _tri(800, 0)
+        jc, c = jdt.build_cell_index(jtri, K=K), dt.build_cell_index(tri, K=K)
+        assert c.complete and c.overflow.float().mean() > (0.5 if K == 2 else 0)
+    Q = np.random.default_rng(1).uniform(-0.49, 0.49, size=(3000, 2))
+    Q = np.concatenate([[[1e7, 1e7]], Q])
+    jl, jw, ji, jbad = _jax_cells(jtri, jc, Q, monkeypatch)
+    leaf, w, ok, bad = dt._locate_cells_score_2d(tri, c, torch.as_tensor(Q))
+    assert leaf.dtype == torch.int64 and ok.dtype == bad.dtype == torch.bool
+    np.testing.assert_array_equal(leaf.numpy(), jl)
+    np.testing.assert_allclose(w.numpy(), jw, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(ok.numpy(), ji)
+    np.testing.assert_array_equal(bad.numpy(), jbad)
+    assert 1 < bad.sum() < len(Q)
+
+
+def test_float32_cpu_scoring_takes_the_plain_version():
+    # The kernel serves float32 on the card only: on the CPU, float32
+    # queries take the plain version and the wrapper refuses CPU tensors.
+    from gsl_scattered_interpolation_torch.ops import cells as cells_ops
+
+    _, tri64 = _tri(800, 0)
+    tri = tri64.cast(torch.float32)
+    c = dt.build_cell_index(tri)
+    Q = torch.as_tensor(np.random.default_rng(2).uniform(-0.49, 0.49, size=(500, 2)), dtype=torch.float32)
+    before = cells_ops.cells2d_cuda.launches
+    leaf, w, ok = dt.locate_cells(tri, c, Q, fallback="none")
+    assert cells_ops.cells2d_cuda.launches == before
+    pleaf, pw, pok, _ = dt._locate_cells_score_2d(tri, c, Q)
+    torch.testing.assert_close((leaf, w, ok), (pleaf, pw, pok), rtol=0, atol=0)
+    assert w.dtype == torch.float32 and float(ok.float().mean()) > 0.99
+    with pytest.raises(errors.InvalidArgumentError):
+        cells_ops.cells2d_cuda(Q, tri.shift, tri.scale, c.table, c.overflow, tri.affine,
+                               c.res, c.k, c.complete)
+
+
 def test_out_of_square_and_cage():
     # TestCellIndex::test_out_of_square_and_cage
     jtri, tri = _tri(200, 2)

@@ -15,6 +15,7 @@ import torch
 
 from gsl_scattered_interpolation_torch import ScatteredInterp
 from gsl_scattered_interpolation_torch.models import device_tri, host_tree
+from gsl_scattered_interpolation_torch.ops import cells as cells_ops
 from gsl_scattered_interpolation_torch.ops import locate
 from gsl_scattered_interpolation_torch.utils import datasets, errors
 
@@ -303,8 +304,10 @@ def test_cell_path_on_card_equals_cpu(cuda):
     torch.testing.assert_close(gpu.tri.tri_verts.cpu(), cpu.tri.tri_verts, rtol=0, atol=0)
     Q = np.random.default_rng(6).uniform(-0.5, 0.5, size=(200_000, 2))
     before = locate.locate2d_cuda.launches
+    before_cells = cells_ops.cells2d_cuda.launches
     v = gpu.eval(Q)
     assert locate.locate2d_cuda.launches == before  # the cells route
+    assert cells_ops.cells2d_cuda.launches == before_cells + 1  # its kernel
     gc = gpu._cells
     cc = cpu._cells = device_tri.build_cell_index(cpu.tri, method="device")
     assert gc.table.device.type == "cuda" and gc.complete == cc.complete
@@ -318,6 +321,139 @@ def test_cell_path_on_card_equals_cpu(cuda):
     cleaf, _, cok = device_tri.locate_cells(cpu.tri, cc, cpu._queries(Q))
     assert (leaf.cpu() != cleaf).float().mean() < 1e-3  # edges within f32 noise
     torch.testing.assert_close(ok.cpu(), cok, rtol=0, atol=0)
+
+
+_FACADES = {}
+
+
+def _facade_20k():
+    """The card's float32 device-engine facade of 20,000 uniform sites (T =
+    40,001, past the brute-force limit), built once per process."""
+    if "20k" not in _FACADES:
+        sites = np.random.default_rng(5).uniform(-0.5, 0.5, size=(20_000, 2))
+        vals = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+        _FACADES["20k"] = ScatteredInterp(sites, vals, flags=host_tree.NOSTANDARDIZE,
+                                          engine="device", dtype=torch.float32)
+    return _FACADES["20k"]
+
+
+def _cell_queries(n, device):
+    """n queries uniform over the square, then queries outside it and
+    outside the cage."""
+    rng = np.random.default_rng(n)
+    far = rng.uniform(-4.0, 4.0, size=(n // 10, 2))
+    edge = [[1e7, 1e7], [-3.0, 0.2], [0.5, -0.5], [-0.5, 0.5], [0.0, 0.0], [-1e7, 3.0]]
+    q = np.concatenate([rng.uniform(-0.5, 0.5, size=(n, 2)), far, edge])
+    return torch.as_tensor(q, dtype=torch.float32, device=device)
+
+
+def _cells_kernel_equals_plain(tri, cells, q):
+    """The cell kernel's (leaf, weights, in_domain, bad) against its plain
+    version's, to the bit; returns the kernel's."""
+    before = cells_ops.cells2d_cuda.launches
+    got = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table, cells.overflow,
+                                 tri.affine, cells.res, cells.k, cells.complete)
+    want = device_tri._locate_cells_score_2d(tri, cells, q)
+    torch.cuda.synchronize()
+    assert cells_ops.cells2d_cuda.launches == before + 1
+    for name, g, p in zip(("leaf", "w", "in_domain", "bad"), got, want):
+        torch.testing.assert_close(g, p, rtol=0, atol=0, msg=name)
+    return got
+
+
+@pytest.mark.parametrize("index", ["facade", "host", "overflow", "incomplete"])
+def test_cells_kernel_equals_plain(cuda, index):
+    # At 2*10^5 queries (and queries outside the square and the cage): the
+    # 20,000-site facade's own index (the device build, which drops a few
+    # pairs on the card: incomplete), the host rasterizer's (complete),
+    # the host's at K = 2 (most cells overflow), and a budget-spilled
+    # device index.
+    si = _facade_20k()
+    cells = {"facade": si._get_cells,
+             "host": lambda: device_tri.build_cell_index(si.tri, method="host"),
+             "overflow": lambda: device_tri.build_cell_index(si.tri, K=2, method="host"),
+             "incomplete": lambda: device_tri._build_cell_index_device(
+                 si.tri, pair_budget_override=1)}[index]()
+    assert index == "facade" or cells.complete == (index != "incomplete")
+    assert cells.table.device.type == "cuda"
+    assert index != "overflow" or float(cells.overflow.float().mean()) > 0.5
+    _, _, ok, bad = _cells_kernel_equals_plain(si.tri, cells, _cell_queries(200_000, cuda))
+    assert bool(bad.any()) and bool(ok.any()) and not bool(ok.all())
+
+
+@pytest.mark.parametrize("K", [8, 15, 16, 24])
+def test_cells_kernel_equals_plain_at_k(cuda, K):
+    # K = 8 leaves lanes idle, K = 24 takes a second pass, odd K loads
+    # slot by slot.
+    si = _facade_20k()
+    cells = device_tri.build_cell_index(si.tri, K=K)
+    assert cells.k == K
+    _cells_kernel_equals_plain(si.tri, cells, _cell_queries(100_000, cuda))
+
+
+def test_cells_kernel_empty_row_ties_and_nan(cuda):
+    # Three rows rewritten: every slot empty (slot 0 wins, leaf 0); the
+    # containing triangle's fields copied into slots 3 and 11 under two ids
+    # with the rest emptied (the lower slot wins the tie); and a NaN bias
+    # in a listed slot (torch.argmax takes the NaN).
+    import dataclasses
+
+    si = _facade_20k()
+    tri, cells = si.tri, si._get_cells()
+    K = cells.k
+    q = _cell_queries(20_000, cuda)
+    _, cid = device_tri._cells_of(tri, cells.res, q)
+    inside = torch.nonzero(torch.abs(q).amax(-1) < 0.45)[:, 0]
+    picked = []
+    for i in inside.tolist():
+        if all(int(cid[i]) != int(cid[j]) for j in picked):
+            picked.append(i)
+        if len(picked) == 3:
+            break
+    e, t, n = picked
+    leaf, *_ = device_tri._locate_cells_score_2d(tri, cells, q)
+    table = cells.table.clone().view(-1, 7, K)
+    # Empty slots: zero g, 1e30 bias, id -1.
+    empty = torch.zeros(7, device=cuda)
+    empty[4:6], empty[6] = 1e30, -1.0
+    table[cid[e]] = empty[:, None]
+    row = table[cid[t]]
+    slot = int(torch.nonzero(row[6] == float(leaf[t]))[0, 0])
+    fields = row[:, slot].clone()
+    table[cid[t]] = empty[:, None]
+    other = float((int(leaf[t]) + 1) % tri.n_tris)
+    table[cid[t], :, 3], table[cid[t], :, 11] = fields, fields
+    table[cid[t], 6, 11] = other
+    listed = torch.nonzero(table[cid[n], 6] >= 0)[:, 0]
+    nan_slot = int(listed[-1])
+    table[cid[n], 4, nan_slot] = float("nan")
+    cells = dataclasses.replace(cells, table=table.view(-1, 7 * K))
+    got, _, _, _ = _cells_kernel_equals_plain(tri, cells, q)
+    assert int(got[e]) == 0
+    assert int(got[t]) == int(leaf[t])
+    assert int(got[n]) == int(table[cid[n], 6, nan_slot])
+
+
+def test_cells_wrapper_checks_inputs(cuda):
+    si = _facade_20k()
+    tri, cells = si.tri, si._get_cells()
+    q = _cell_queries(1000, cuda)
+
+    def call(**kw):
+        args = dict(q=q, shift=tri.shift, scale=tri.scale, table=cells.table,
+                    overflow=cells.overflow, affine=tri.affine, res=cells.res,
+                    k=cells.k, complete=cells.complete)
+        args.update(kw)
+        return cells_ops.cells2d_cuda(**args)
+
+    for bad_args in ({"q": q.double()}, {"q": q.cpu()}, {"q": q.t().contiguous().t()},
+                     {"q": q.flatten()[1:-1].view(-1, 2)}, {"k": cells.k + 1},
+                     {"res": cells.res - 1}, {"overflow": cells.overflow.to(torch.uint8)},
+                     {"affine": tri.affine[:, :6].contiguous()}):
+        with pytest.raises(errors.InvalidArgumentError):
+            call(**bad_args)
+    leaf, w, ok, bad = call(q=q[:0])
+    assert leaf.shape == (0,) and w.shape == (0, 3) and ok.shape == bad.shape == (0,)
 
 
 def test_float64_facade_on_card_keeps_every_query(cuda):
