@@ -31,8 +31,9 @@ plain version on the chunked route's compacted rows, then
 from Qhull, counted from zero, checked as the 200k build is, with 10
 batches of a million queries through its cell index against the locate
 kernel and scipy, the cell-scoring kernel against its plain version at
-2*10^7 queries of its float32 index (and one eval profiled), and the same
-in float64 with one batch.  Last, the 3D phase at bench.py's sizes, each
+2*10^7 queries of its float32 index (and one eval profiled), the walk
+kernel against the loop on the queries it leaves to the walk in 4 such
+batches (:func:`walk2d_record`), and the same in float64 with one batch.  Last, the 3D phase at bench.py's sizes, each
 path counted from zero (no kernel is on it):
 ``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
 (and a salted rebuild) and float64, held against scipy; the 3D cell index
@@ -73,6 +74,12 @@ tp-sharded Cholesky at n = 8,192 beside ``torch.linalg.cholesky``; and
 
 runs only the cell kernel's record at the 1M phase's index (2*10^7
 queries, as in the benchmark's 1M cell).
+
+    python3 chip_smoke.py --walk2d [--seed N]
+
+runs only the walk kernel's record (:func:`walk2d_record`) on the
+benchmark's 1M cell (``tri2d_1m.eval``) as its seed N makes it: the 1M
+sites' facade and all 16 batches of 2*10^7 queries of its pool.
 
     python3 chip_smoke.py --parallel-ranks 2 4 [--out records.json]
 
@@ -135,6 +142,13 @@ LOCATE_OPS_PER_PAIR = 13   # 4 mul, 4 add, 2 sub, 2 min, 1 compare
 LOCATE_WEIGHT_OPS = 12    # per query: 2 sub, 4 mul, 5 add, 1 sub (its weights)
 CELLS_BATCH = 20_000_000  # the cell kernel's record: the 1M cell's batch (eval_20m)
 CELLS_SEED = 9
+WALK_SEED = 2147521001     # the walk kernel's record: a seed of the 1M cell
+WALK_BATCHES = 4           # batches of CELLS_BATCH queries in the 1M phase's walk record
+WALK_STEPS = 32            # locate_cells' fallback_steps
+WALK_BYTES_IN = 20         # per walked query: its row of idx, q and hint
+WALK_BYTES_STEP = 36       # per step: the simplex's 32 B affine row, one 4 B neighbour entry
+WALK_BYTES_LAST = 32       # per walk cut at max_steps: the last simplex's affine row
+WALK_BYTES_OUT = 21        # leaf, weights, in_domain
 SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: kernel_ms
 
 
@@ -313,6 +327,153 @@ def cells2d_record(si, n_q: int = CELLS_BATCH):
     log(f"cells2d kernel vs plain: {json.dumps(rec)}")
     require(not any(rec["mismatches"].values()), f"cells2d disagrees with its plain version: {rec}")
     require(rec["launches_per_eval"] == 1, f"{rec['launches_per_eval']} cells2d launches an eval")
+    return rec
+
+
+def _bit_mismatches(names, got, want) -> dict:
+    """{name: rows of got and want that differ in any bit}."""
+    import torch
+
+    out = {}
+    for name, g, p in zip(names, got, want):
+        if g.dtype == torch.float32:
+            g, p = g.view(torch.int32), p.view(torch.int32)
+        out[name] = int((g != p).reshape(len(g), -1).any(-1).sum())
+    return out
+
+
+def walk2d_bound_ms(n: "torch.Tensor", max_steps: int) -> float:
+    """Least ms for the walk kernel on queries whose iteration counts are
+    ``n`` (``max_steps + 1`` for a walk cut at the cap): each query's
+    index, coordinates and hint read and its results written once, then
+    per step its simplex's affine row and the one neighbour entry it
+    steps across, and for a cut walk the affine row of the simplex it
+    ends on."""
+    steps = int(n.clamp(max=max_steps).sum())
+    cut = int((n > max_steps).sum())
+    n_bytes = (len(n) * (WALK_BYTES_IN + WALK_BYTES_OUT) + WALK_BYTES_STEP * steps
+               + WALK_BYTES_LAST * cut)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def _emulation():
+    """``tests/walk2d_emulation.py``, the walk kernel's per-query arithmetic
+    in numpy (a helper of the tests, not a package module)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "walk2d_emulation.py"
+    spec = importlib.util.spec_from_file_location("walk2d_emulation", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
+    """The walk kernel against the loop (its plain version) on every batch
+    of ``pool`` [P, B, 2] at the facade ``si``'s cell index: on the
+    queries the cell kernel leaves to the walk, leaf, weights and
+    in_domain to the bit, and the loop's steps against the kernel's
+    count.  On the first batch: the per-query emulation
+    (``tests/walk2d_emulation.py``) against the kernel, each query's
+    iterations, the kernel's time by events and its device time, its byte
+    bound, the loop's time.  Then, on every batch, one ``si.eval`` counted
+    from zero (one walk launch, at most 2 host reads); three timings, in
+    turns, of the evals as they run, of the evals without the host read
+    of the kernel's iteration count (``locate.steps`` left stale), and one
+    of the evals with the loop's walk; and one eval profiled."""
+    import torch
+
+    from gsl_scattered_interpolation_torch.models import device_tri
+    from gsl_scattered_interpolation_torch.ops import cells as cells_ops
+    from gsl_scattered_interpolation_torch.ops import walk as walk_ops
+
+    tri, cells = si.tri, si._get_cells()
+    names = ("leaf", "w", "in_domain")
+    rec = {"B": pool.shape[1], "batches": [], "T": tri.n_tris, "max_steps": max_steps}
+    for q in pool:
+        leaf, w, ok, bad = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table,
+                                                  cells.overflow, tri.affine, cells.res,
+                                                  cells.k, cells.complete)
+        idx = torch.nonzero(bad)[:, 0]
+        args = (q, idx, tri.shift, tri.scale, cells.hint, cells.res, tri.tri_nbrs,
+                tri.affine, max_steps)
+        got = [t.clone() for t in (leaf, w, ok)]
+        want = [t.clone() for t in (leaf, w, ok)]
+        n_max = int(walk_ops.walk2d_cuda(*args, *got))
+        steps = device_tri.locate.steps
+        device_tri._walk_in_loop(tri, cells, q, idx, max_steps, *want)
+        rec["batches"].append({
+            "walked": idx.numel(), "n_max": n_max,
+            "steps": device_tri.lockstep_steps(n_max, max_steps),
+            "loop_steps": device_tri.locate.steps - steps,
+            "mismatches": _bit_mismatches(names, got, want)})
+        if len(rec["batches"]) == 1:
+            first = (q, idx, args, got, leaf, w, ok)
+    q, idx, args, got, leaf, w, ok = first
+    _, cid = device_tri._cells_of(tri, cells.res, q[idx])
+    t0 = time.perf_counter()
+    emulated = _emulation().walk2d_plain(q[idx], cells.hint[cid], tri.tri_nbrs, tri.affine,
+                                         max_steps)
+    rec["emulation_s"] = time.perf_counter() - t0
+    rec["emulation_mismatches"] = _bit_mismatches(names, [g[idx].cpu() for g in got],
+                                                  emulated[:3])
+    n = emulated[3]
+    rec["iterations"] = {"mean": float(n.double().mean()), "max": int(n.max()),
+                         "histogram": torch.bincount(n).tolist()}
+    scratch = [t.clone() for t in (leaf, w, ok)]
+    rec["ms"] = time_ms(lambda: walk_ops.walk2d_cuda(*args, *scratch), 20)
+    rec["device_ms"] = kernel_ms(lambda: walk_ops.walk2d_cuda(*args, *scratch))
+    loop_out = [t.clone() for t in (leaf, w, ok)]
+    rec["plain_ms"] = time_ms(
+        lambda: device_tri._walk_in_loop(tri, cells, q, idx, max_steps, *loop_out), 5)
+    rec["bound_ms"], rec["bound_by"] = walk2d_bound_ms(n, max_steps), "bytes"
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+
+    reads = lambda: device_tri.locate.host_reads + device_tri.locate_cells_host_reads  # noqa: E731
+    walk_ops.walk2d_cuda.launches = 0
+    before = reads()
+    for qb in pool:
+        si.eval(qb)
+    torch.cuda.synchronize()
+    rec["launches_per_eval"] = walk_ops.walk2d_cuda.launches / len(pool)
+    rec["host_reads_per_eval"] = (reads() - before) / len(pool)
+
+    def evals():
+        for qb in pool:
+            si.eval(qb)
+
+    def walk_without_read(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
+        walk_ops.walk2d_cuda(q_raw, idx, tri.shift, tri.scale, cells.hint, cells.res,
+                             tri.tri_nbrs, tri.affine, max_steps, leaf, w, in_domain)
+
+    def evals_with(walk):
+        device_tri._walk_2d_on_card = walk
+        try:
+            return time_ms(evals, 2) / len(pool)
+        finally:
+            device_tri._walk_2d_on_card = kernel_walk
+
+    kernel_walk = device_tri._walk_2d_on_card
+    rec["eval_ms"], rec["eval_ms_no_read"] = [], []
+    for _ in range(3):
+        rec["eval_ms"].append(evals_with(kernel_walk))
+        rec["eval_ms_no_read"].append(evals_with(walk_without_read))
+    rec["eval_ms_loop_walk"] = evals_with(device_tri._walk_in_loop)
+    busy_ms, wall_ms, rows = profile_build(lambda: si.eval(pool[0]))
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+    rec["eval"] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
+                   "top_kernels_ms": {k[:80]: ms for k, (_, ms) in top}}
+    kernel = [v for k, v in rows.items() if "walk2d_kernel" in k]
+    rec["eval"]["kernel_profiled_ms"] = kernel[0][1] if kernel else None
+    log(f"walk2d kernel vs loop: {json.dumps(rec)}")
+    bad = [b for b in rec["batches"]
+           if any(b["mismatches"].values()) or b["steps"] != b["loop_steps"]]
+    require(not bad, f"walk2d disagrees with the loop: {bad}")
+    require(not any(rec["emulation_mismatches"].values()),
+            f"walk2d disagrees with its per-query emulation: {rec['emulation_mismatches']}")
+    require(rec["launches_per_eval"] == 1, f"{rec['launches_per_eval']} walk2d launches an eval")
+    require(rec["host_reads_per_eval"] <= 2, f"{rec['host_reads_per_eval']} host reads an eval")
     return rec
 
 
@@ -1034,12 +1195,14 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda",
     from gsl_scattered_interpolation_torch.models.scattered import NOSTANDARDIZE
     from gsl_scattered_interpolation_torch.ops import candmath, locate
     from gsl_scattered_interpolation_torch.ops import cells as cells_ops
+    from gsl_scattered_interpolation_torch.ops import walk as walk_ops
 
     values = headline_values(sites)
     f32 = dtype == torch.float32
     locate.locate2d_cuda.launches = 0
     candmath.edge_candidates_math_cuda.launches = 0
     cells_ops.cells2d_cuda.launches = 0
+    walk_ops.walk2d_cuda.launches = 0
     sync(device)
     t0 = time.perf_counter()
     si = ScatteredInterp(sites, values, flags=NOSTANDARDIZE, engine="device",
@@ -1077,11 +1240,15 @@ def at_scale_query(sites, dtype, n_batches: int, scipy_tri=None, device="cuda",
         "locate2d_launches": locate.locate2d_cuda.launches,
         "candmath2d_launches": candmath.edge_candidates_math_cuda.launches,
         "cells2d_launches": cells_ops.cells2d_cuda.launches,
+        "walk2d_launches": walk_ops.walk2d_cuda.launches,
     }
     require(T == 2 * sites.shape[0] + 1, f"{T} simplexes")
-    on_card = f32 and si.tri.device.type == "cuda"  # the kernel's route
+    on_card = f32 and si.tri.device.type == "cuda"  # the kernels' route
     require(rec["cells2d_launches"] == (n_batches if on_card else 0),
             f"{rec['cells2d_launches']} cells2d launches for {n_batches} {rec['dtype']} batches")
+    walking = sum(1 for m in walked if m)
+    require(rec["walk2d_launches"] == (walking if on_card else 0),
+            f"{rec['walk2d_launches']} walk2d launches for {walking} {rec['dtype']} batches that walk")
     require(rec["candmath2d_launches"] > 0, "the build never launched candmath2d")
 
     out0 = outs[0][:N_CHECK]
@@ -1182,6 +1349,10 @@ def build_1m(sites, dtype, n_batches: int, scipy_own, scipy_exact=None,
     rec["checks_s"] = time.perf_counter() - t0
     if f32:
         rec["cells2d"] = cells2d_record(si)
+        pool = uniform_queries(CELLS_BATCH, seed=CELLS_SEED, device="cuda",
+                               batches=WALK_BATCHES)
+        rec["walk2d"] = walk2d_record(si, pool)
+        del pool
     log(f"build at 1M: {json.dumps(rec)}")
     return rec
 
@@ -1510,11 +1681,12 @@ def _timed(fn, device):
 def _counted():
     """{kernel: its wrapper}, each wrapper carrying its launch count (looked
     up now: a Recorder may stand in for the tridiagonal wrappers)."""
-    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag
+    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag, walk
 
     return {"locate2d": locate.locate2d_cuda,
             "candmath2d": candmath.edge_candidates_math_cuda,
             "cells2d": cells.cells2d_cuda,
+            "walk2d": walk.walk2d_cuda,
             "tridiag": tridiag.thomas_cuda,
             "tridiag_partitioned": tridiag.partitioned_cuda}
 
@@ -2968,7 +3140,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     from gsl_scattered_interpolation_torch.kernels import build
-    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag
+    from gsl_scattered_interpolation_torch.ops import candmath, cells, locate, tridiag, walk
 
     # 1. Device.
     t0 = time.perf_counter()
@@ -2986,7 +3158,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name).strip(), time.perf_counter() - t0
 
-    names = (locate.KERNEL, candmath.KERNEL, tridiag.KERNEL, cells.KERNEL)
+    names = (locate.KERNEL, candmath.KERNEL, tridiag.KERNEL, cells.KERNEL, walk.KERNEL)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(timed_build, names)))
     for name, (out, secs) in built.items():
@@ -3133,6 +3305,7 @@ def main() -> int:
     c32 = cand_recs[torch.float32][-1]
     c64 = cand_recs[torch.float64][-1]
     c2d = b1m["f32"]["cells2d"]
+    w2d = b1m["f32"]["walk2d"]
     kernels = [{
         "name": locate.KERNEL,
         "route": "cuda",
@@ -3237,6 +3410,34 @@ def main() -> int:
         "shape": f"B={c2d['B']} G={c2d['G']} K={c2d['K']}",
         "launches_per_eval": c2d["launches_per_eval"],
         "eval": c2d["eval"],
+    }, {
+        "name": walk.KERNEL,
+        "route": "cuda",
+        "source": "gsl_scattered_interpolation_torch/kernels/csrc/walk2d.cu",
+        # No Pallas kernel: the JAX package's lockstep lax.while_loop.
+        "replaces": "gsl_scattered_interpolation_tpu/models/device_tri.py:587",
+        "launches": b1m["f32"]["walk2d_launches"],
+        # null where a phase keeps no count of it (the 3D phase).
+        "launches_by_path": {**{f"at_scale_{k}": r["walk2d_launches"]
+                                for k, r in at_scale.items()},
+                             **{f"build_1m_{k}": r["walk2d_launches"]
+                                for k, r in b1m.items()},
+                             **{k: r.get("walk2d_launches") for k, r in p3d.items()},
+                             **{k: r.get("walk2d_launches") for k, r in prbf.items()},
+                             **{k: r.get("walk2d_launches") for k, r in pcfg.items()},
+                             **{f"parallel_{k}": r.get("walk2d_launches")
+                                for k, r in pcfgs.items()}},
+        # Bit-equal to the loop on every batch (walk2d_record gates it).
+        "max_abs_err": float(any(any(b["mismatches"].values()) for b in w2d["batches"])),
+        **{k: w2d[k] for k in TIMES},
+        "library_ms": None,  # no one PyTorch call computes this function
+        "shape": f"B={w2d['B']} walked={w2d['batches'][0]['walked']} T={w2d['T']}",
+        "launches_per_eval": w2d["launches_per_eval"],
+        "host_reads_per_eval": w2d["host_reads_per_eval"],
+        "eval_ms": w2d["eval_ms"],
+        "eval_ms_no_read": w2d["eval_ms_no_read"],
+        "eval_ms_loop_walk": w2d["eval_ms_loop_walk"],
+        "eval": w2d["eval"],
     }, *tridiag_summary(pcfg)]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was not launched on its main paths")
@@ -3283,6 +3484,30 @@ def cells2d_main() -> int:
     return 0
 
 
+def walk2d_main(seed: int) -> int:
+    """Only the walk kernel's record (:func:`walk2d_record`) on the
+    benchmark's 1M cell as ``seed`` makes it; the record is the last line."""
+    import torch
+
+    from benchmark import generate, run
+    from gsl_scattered_interpolation_torch import ScatteredInterp
+    from gsl_scattered_interpolation_torch.models import scattered
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
+        return 1
+    _, config, traffic = run.cell_parts(run.load_spec(), "tri2d_1m.eval")
+    sites, values = generate.problem(config, seed)
+    si = ScatteredInterp(sites, values, flags=getattr(scattered, config["flags"]),
+                         engine=config["engine"], dtype=getattr(torch, config["dtype"]),
+                         grid_res=config["grid_res"], device="cuda")
+    pool = generate.query_pool(config, traffic, seed, "cuda")
+    rec = walk2d_record(si, pool)
+    rec["seed"] = seed
+    print(json.dumps(rec))
+    return 0
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -3292,9 +3517,15 @@ if __name__ == "__main__":
     ap.add_argument("--out", help="with --parallel-ranks: write every record here (JSON)")
     ap.add_argument("--cells2d", action="store_true",
                     help="only the cell kernel's record, at the 1M sites' index")
+    ap.add_argument("--walk2d", action="store_true",
+                    help="only the walk kernel's record, on the benchmark's 1M cell")
+    ap.add_argument("--seed", type=int, default=WALK_SEED,
+                    help="with --walk2d: the cell's seed")
     args = ap.parse_args()
     if args.cells2d:
         sys.exit(cells2d_main())
+    if args.walk2d:
+        sys.exit(walk2d_main(args.seed))
     if args.parallel_ranks:
         sys.exit(parallel_ranks_main(args.parallel_ranks, args.out))
     sys.exit(main())

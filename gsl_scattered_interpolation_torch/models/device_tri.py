@@ -30,7 +30,9 @@ device build (:func:`from_arrays`).  Queries are located by one of:
 The walk, the index build and ``locate_cells`` are plain PyTorch ops on
 the tensors' device, as they are plain ``jnp`` ops in the JAX package.
 The JAX ``while_loop`` and ``lax.cond`` tiers become Python loops with a
-few host reads (recorded in ROADMAP.md).
+few host reads (recorded in ROADMAP.md).  For 2D float32 queries on the
+card, ``locate_cells`` scores with ``kernels/csrc/cells2d.cu`` and walks
+with ``kernels/csrc/walk2d.cu`` instead.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from ..ops import cells as cells_ops
 from ..ops import geometry
 from ..ops import locate as locate_ops
+from ..ops import walk as walk_ops
 from ..utils import errors, machine, profiling
 
 # Brute-force locate serves triangulations up to this size, and the cell
@@ -480,6 +483,13 @@ def locate_dense(tri: DeviceTriangulation, q_raw, block: int | None = None):
 # steps, where the JAX ``while_loop`` tests it before every step.  A query
 # that is done never moves again, so the extra steps change no result.
 WALK_DONE_EVERY = 4
+
+
+def lockstep_steps(n_max: int, max_steps: int) -> int:
+    """The steps :func:`locate`'s loop takes when its slowest query stops
+    after ``n_max`` iterations (``max_steps + 1``: never): it tests
+    ``done`` every ``WALK_DONE_EVERY`` steps and stops at ``max_steps``."""
+    return min(max_steps, WALK_DONE_EVERY * -(-n_max // WALK_DONE_EVERY))
 
 
 def locate(
@@ -1445,18 +1455,29 @@ def locate_cells(
     outside the cube that no candidate contains, those whose score and
     weights disagree, and, for an incomplete index, every query that no
     candidate contains.  ``fallback="none"`` skips the walk: not-contained
-    queries then report in_domain=False.
+    queries then report in_domain=False.  2D float32 queries on the card
+    walk in one launch of ``ops.walk.walk2d_cuda``, which gives the bits of
+    :func:`locate`'s loop, the route of every other query.
 
     The walk takes exactly the queries that need it, found by one host
     read, so the JAX package's ``fallback_frac`` buffer has no counterpart.
     That read adds 1 to the module's ``locate_cells_host_reads``.  The
     scoring, through the mask of the queries to walk, is the span
     ``device_tri.locate_cells.score``; the read is
-    ``device_tri.locate_cells.select``.
+    ``device_tri.locate_cells.select``.  The kernel's walk is the span
+    ``device_tri.locate`` too, and counts as the loop does (one host read).
 
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
     """
     global locate_cells_host_reads
+    on_card = (
+        tri.dim == 2
+        and q_raw.device.type == "cuda"
+        and q_raw.dtype == cells.table.dtype == tri.affine.dtype
+        == torch.float32
+    )
+    if on_card:
+        q_raw = q_raw.contiguous()
     with profiling.span("device_tri.locate_cells.score"):
         if tri.dim == 3:
             cid, leaf, bestw, q_std = _locate_cells_score_3d(
@@ -1465,13 +1486,9 @@ def locate_cells(
             w, in_domain, bad = _settle(
                 tri, cells, q_raw, cid, leaf, bestw, q_std
             )
-        elif (
-            q_raw.device.type == "cuda"
-            and q_raw.dtype == cells.table.dtype == tri.affine.dtype
-            == torch.float32
-        ):
+        elif on_card:
             leaf, w, in_domain, bad = cells_ops.cells2d_cuda(
-                q_raw.contiguous(), tri.shift, tri.scale, cells.table,
+                q_raw, tri.shift, tri.scale, cells.table,
                 cells.overflow, tri.affine, cells.res, cells.k,
                 cells.complete,
             )
@@ -1486,19 +1503,44 @@ def locate_cells(
         idx = torch.nonzero(bad)[:, 0]
     if idx.numel() == 0:
         return leaf, w, in_domain
-    q_walk = q_raw[idx]
-    _, cid = _cells_of(tri, cells.res, q_walk)
-    sub_leaf, sub_w, sub_in = locate(
-        tri, q_walk, start=cells.hint[cid], max_steps=fallback_steps
-    )
-    leaf[idx] = sub_leaf
-    w[idx] = sub_w
-    in_domain[idx] = sub_in & torch.all(sub_w > -0.5, dim=-1)
+    walk = _walk_2d_on_card if on_card else _walk_in_loop
+    walk(tri, cells, q_raw, idx, fallback_steps, leaf, w, in_domain)
     return leaf, w, in_domain
 
 
 # The host reads of ``locate_cells``'s walk mask: one a call that may walk.
 locate_cells_host_reads = 0
+
+
+def _walk_in_loop(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
+    """:func:`locate_cells`'s walk of rows ``idx`` of the queries by
+    :func:`locate`'s loop, each from its cell's hint; the results are
+    written in place, ``in_domain`` with every weight > -0.5."""
+    q_walk = q_raw[idx]
+    _, cid = _cells_of(tri, cells.res, q_walk)
+    sub_leaf, sub_w, sub_in = locate(
+        tri, q_walk, start=cells.hint[cid], max_steps=max_steps
+    )
+    leaf[idx] = sub_leaf
+    w[idx] = sub_w
+    in_domain[idx] = sub_in & torch.all(sub_w > -0.5, dim=-1)
+
+
+def _walk_2d_on_card(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
+    """:func:`locate_cells`'s walk of rows ``idx`` of float32 queries on
+    the card, in one launch of ``ops.walk.walk2d_cuda``: each query walks
+    from its cell's hint to its end, and its leaf, weights and in_domain
+    are written in place.  The span and the counters are :func:`locate`'s;
+    ``locate.steps`` grows by the steps the loop would have taken, from
+    the kernel's largest iteration count, fetched by one host read."""
+    with profiling.span("device_tri.locate"):
+        n_max = walk_ops.walk2d_cuda(
+            q_raw, idx, tri.shift, tri.scale, cells.hint, cells.res,
+            tri.tri_nbrs, tri.affine, max_steps, leaf, w, in_domain,
+        )
+        locate.host_reads += 1
+        locate.steps += lockstep_steps(int(n_max), max_steps)
+        locate.queries += idx.numel()
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,13 @@ inside each test, never while the module is imported.
 import numpy as np
 import pytest
 import torch
+from walk2d_emulation import walk2d_plain
 
 from gsl_scattered_interpolation_torch import ScatteredInterp
 from gsl_scattered_interpolation_torch.models import device_tri, host_tree
 from gsl_scattered_interpolation_torch.ops import cells as cells_ops
 from gsl_scattered_interpolation_torch.ops import locate
+from gsl_scattered_interpolation_torch.ops import walk as walk_ops
 from gsl_scattered_interpolation_torch.utils import datasets, errors
 
 pytestmark = pytest.mark.cuda
@@ -454,6 +456,139 @@ def test_cells_wrapper_checks_inputs(cuda):
             call(**bad_args)
     leaf, w, ok, bad = call(q=q[:0])
     assert leaf.shape == (0,) and w.shape == (0, 3) and ok.shape == bad.shape == (0,)
+
+
+def _facade_1m():
+    """The card's float32 device-engine facade of the 1M cell's sites:
+    10^6 uniform sites, grid_res 512 (T = 2,000,001), built once per
+    process."""
+    if "1m" not in _FACADES:
+        sites = np.random.default_rng(7).uniform(-0.5, 0.5, size=(1_000_000, 2))
+        vals = np.sin(6 * sites[:, 0]) * np.cos(6 * sites[:, 1])
+        _FACADES["1m"] = ScatteredInterp(sites, vals, flags=host_tree.NOSTANDARDIZE,
+                                         engine="device", dtype=torch.float32, grid_res=512)
+    return _FACADES["1m"]
+
+
+def _assert_same_bits(got, want, nan_bits=True):
+    """(leaf, weights, in_domain) equal to the bit; with ``nan_bits``
+    False, a NaN weight equals any NaN (the card and numpy make NaNs of
+    other bits)."""
+    for name, g, p in zip(("leaf", "w", "in_domain"), got, want):
+        if g.dtype == torch.float32:
+            if not nan_bits:
+                torch.testing.assert_close(g.isnan(), p.isnan(), rtol=0, atol=0, msg=name)
+                g, p = g.nan_to_num(0.0, torch.inf, -torch.inf), p.nan_to_num(0.0, torch.inf, -torch.inf)
+            g, p = g.view(torch.int32), p.view(torch.int32)
+        torch.testing.assert_close(g, p, rtol=0, atol=0, msg=name)
+
+
+def _walk(tri, cells, q, idx, max_steps, leaf, w, ok):
+    """The walk kernel on rows idx of q, in place; its largest iteration
+    count.  Counted: one launch."""
+    before = walk_ops.walk2d_cuda.launches
+    n_max = walk_ops.walk2d_cuda(q, idx, tri.shift, tri.scale, cells.hint, cells.res,
+                                 tri.tri_nbrs, tri.affine, max_steps, leaf, w, ok)
+    torch.cuda.synchronize()
+    assert walk_ops.walk2d_cuda.launches == before + 1
+    assert n_max.dtype == torch.int32 and n_max.shape == (1,)
+    return int(n_max)
+
+
+@pytest.mark.parametrize("max_steps", [1, 2, 3, 5, 32, 128])
+def test_walk_kernel_equals_loop_at_1m(cuda, max_steps):
+    # The 1M cell's index (the device build's, incomplete): the queries
+    # the cell kernel leaves to the walk, among 2*10^6 over the square,
+    # 2*10^5 outside it (many outside the cage) and the edge queries.
+    si = _facade_1m()
+    tri, cells = si.tri, si._get_cells()
+    q = _cell_queries(2_000_000, cuda)
+    leaf, w, ok, bad = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table,
+                                              cells.overflow, tri.affine, cells.res, cells.k,
+                                              cells.complete)
+    idx = torch.nonzero(bad)[:, 0]
+    got = [t.clone() for t in (leaf, w, ok)]
+    want = [t.clone() for t in (leaf, w, ok)]
+    n_max = _walk(tri, cells, q, idx, max_steps, *got)
+    steps = device_tri.locate.steps
+    device_tri._walk_in_loop(tri, cells, q, idx, max_steps, *want)
+    _assert_same_bits(got, want)
+    assert device_tri.lockstep_steps(n_max, max_steps) == device_tri.locate.steps - steps
+    inner = int((torch.abs(q[idx]).amax(-1) <= 0.5).sum())
+    assert inner > 300 and idx.numel() - inner > 1000  # both kinds walk
+    assert n_max == max_steps + 1 or max_steps > 3  # small caps cut walks
+
+
+@pytest.mark.parametrize("max_steps", [1, 32])
+def test_walk_kernel_nan_and_boundary_queries(cuda, max_steps):
+    # Every query walks: NaN and infinite coordinates (a NaN lands in cell
+    # row or column 0), queries outside the cage and on the square's
+    # corners, and uniform ones.  Against the loop from the same starts,
+    # and against the plain per-query version.
+    si = _facade_20k()
+    tri, cells = si.tri, si._get_cells()
+    nan, inf = float("nan"), float("inf")
+    edge = [[nan, 0.1], [0.2, nan], [nan, nan], [inf, 0.0], [-inf, -inf], [1e7, 1e7],
+            [-1e7, 3.0], [0.5, -0.5], [-0.5, 0.5], [0.0, 0.0]]
+    q = torch.cat([torch.tensor(edge, device=cuda), _cell_queries(3000, cuda)])
+    idx = torch.arange(len(q), device=cuda)
+    got = (torch.zeros(len(q), dtype=torch.int64, device=cuda),
+           torch.zeros(len(q), 3, device=cuda), torch.zeros(len(q), dtype=torch.bool, device=cuda))
+    n_max = _walk(tri, cells, q, idx, max_steps, *got)
+    safe = torch.nan_to_num(q, nan=-inf, posinf=inf, neginf=-inf)
+    start = cells.hint[device_tri._cells_of(tri, cells.res, safe)[1]]
+    steps = device_tri.locate.steps
+    leaf, w, ok = device_tri.locate(tri, q, start=start, max_steps=max_steps)
+    _assert_same_bits(got, (leaf, w, ok & torch.all(w > -0.5, dim=-1)))
+    assert device_tri.lockstep_steps(n_max, max_steps) == device_tri.locate.steps - steps
+    pleaf, pw, pok, n = walk2d_plain(q, start, tri.tri_nbrs, tri.affine, max_steps)
+    _assert_same_bits([t.cpu() for t in got], (pleaf, pw, pok), nan_bits=False)
+    assert int(n.max()) == n_max
+    assert not bool(got[2][:7].any()) and bool(got[2][7:].any())
+
+
+def test_walk_wrapper_checks_inputs(cuda):
+    si = _facade_20k()
+    tri, cells = si.tri, si._get_cells()
+    q = _cell_queries(1000, cuda)
+    B = len(q)
+
+    def call(**kw):
+        args = dict(q=q, idx=torch.arange(5, device=cuda), shift=tri.shift, scale=tri.scale,
+                    hint=cells.hint, res=cells.res, nbrs=tri.tri_nbrs, affine=tri.affine,
+                    max_steps=32, leaf=torch.zeros(B, dtype=torch.int64, device=cuda),
+                    w=torch.zeros(B, 3, device=cuda),
+                    in_domain=torch.zeros(B, dtype=torch.bool, device=cuda))
+        args.update(kw)
+        return walk_ops.walk2d_cuda(**args), args
+
+    for bad_args in ({"q": q.double()}, {"q": q.cpu()}, {"q": q.t().contiguous().t()},
+                     {"q": q.flatten()[1:-1].view(-1, 2)},
+                     {"idx": torch.arange(5, device=cuda, dtype=torch.int32)},
+                     {"res": cells.res - 1}, {"nbrs": tri.tri_nbrs.long()},
+                     {"affine": tri.affine[:, :6].contiguous()},
+                     {"leaf": torch.zeros(B, dtype=torch.int32, device=cuda)},
+                     {"w": torch.zeros(B, 2, device=cuda)}, {"max_steps": -1}):
+        with pytest.raises(errors.InvalidArgumentError):
+            call(**bad_args)
+    n_max, args = call(idx=torch.zeros(0, dtype=torch.int64, device=cuda))
+    assert int(n_max) == 0 and not bool(args["leaf"].any())
+
+
+def test_one_walk_launch_per_locate_cells_call_that_walks(cuda):
+    si = _facade_20k()
+    tri = si.tri
+    q = _cell_queries(20_000, cuda)
+    for K, walks in ((2, True), (32, False)):  # K = 2: most cells overflow
+        cells = device_tri.build_cell_index(tri, K=K, method="host")
+        bad = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table, cells.overflow,
+                                     tri.affine, cells.res, cells.k, cells.complete)[3]
+        if not walks:
+            q = q[~bad]  # queries the index settles
+        before = walk_ops.walk2d_cuda.launches, device_tri.locate.queries
+        device_tri.locate_cells(tri, cells, q)
+        assert walk_ops.walk2d_cuda.launches == before[0] + walks
+        assert device_tri.locate.queries - before[1] == (int(bad.sum()) if walks else 0)
 
 
 def test_float64_facade_on_card_keeps_every_query(cuda):

@@ -1,6 +1,7 @@
 """The port's spans and counters (``utils.profiling.span``, the walk's and
 the cell index's host reads, ``ScatteredInterp.build_stats``), on the
-CPU.  No JAX."""
+CPU, and the walk kernel's host reads on a card (marked ``cuda``).  No
+JAX."""
 
 import functools
 import time
@@ -108,6 +109,27 @@ def test_walk_reads_once_per_done_test(monkeypatch):
     assert select_reads == 1
     # Tests of done at steps 0, WALK_DONE_EVERY, ..., the last one true.
     assert walk_reads == steps // dt.WALK_DONE_EVERY + 1
+
+
+@pytest.mark.cuda
+def test_kernel_walk_reads_once_on_the_card():
+    # 2D float32 queries on the card walk in one kernel launch: one read
+    # of its largest iteration count, beside the select read, per call.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tri = _interp().tri.to("cuda").cast(torch.float32)
+    cells = dt.build_cell_index(tri, K=2)
+    for seed in (2, 3):
+        q = _queries(seed).to("cuda", torch.float32)
+        before = (dt.locate.queries, dt.locate.steps, dt.locate.host_reads,
+                  dt.locate_cells_host_reads)
+        dt.locate_cells(tri, cells, q, fallback_steps=32)
+        walked, steps, walk_reads, select_reads = (
+            a - b for a, b in zip((dt.locate.queries, dt.locate.steps, dt.locate.host_reads,
+                                   dt.locate_cells_host_reads), before))
+        assert walked > 0 and 0 < steps <= 32
+        assert steps % dt.WALK_DONE_EVERY == 0 or steps == 32  # the loop's count
+        assert walk_reads <= 1 and select_reads == 1
 
 
 def test_index_alone_reads_once():
