@@ -33,7 +33,9 @@ batches of a million queries through its cell index against the locate
 kernel and scipy, the cell-scoring kernel against its plain version at
 2*10^7 queries of its float32 index (and one eval profiled), the walk
 kernel against the loop on the queries it leaves to the walk in 4 such
-batches (:func:`walk2d_record`), and the same in float64 with one batch.  Last, the 3D phase at bench.py's sizes, each
+batches (:func:`walk2d_record`), both kernels' value modes (interp's
+route) against interp's torch tail, and the same in float64 with one
+batch.  Last, the 3D phase at bench.py's sizes, each
 path counted from zero (no kernel is on it):
 ``ScatteredInterp(engine="cavity")`` of 10,000 sites in float32
 (and a salted rebuild) and float64, held against scipy; the 3D cell index
@@ -149,6 +151,9 @@ WALK_BYTES_IN = 20         # per walked query: its row of idx, q and hint
 WALK_BYTES_STEP = 36       # per step: the simplex's 32 B affine row, one 4 B neighbour entry
 WALK_BYTES_LAST = 32       # per walk cut at max_steps: the last simplex's affine row
 WALK_BYTES_OUT = 21        # leaf, weights, in_domain
+WALK_BYTES_VALUE = 20      # value mode: the value out, the simplex's 16 B response row in
+CELLS_BYTES_OUT = 22       # leaf 8, weights 12, in_domain 1, bad 1
+CELLS_BYTES_VALUE = 21     # value mode: value 4 and bad 1 out, the leaf's 16 B response row in
 SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: kernel_ms
 
 
@@ -267,20 +272,25 @@ def locate_bound_ms(n_q: int, n_t: int, weights: bool = False):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def cells2d_bound_ms(n_q: int, K: int) -> float:
+def cells2d_bound_ms(n_q: int, K: int, values: bool = False) -> float:
     """Least ms for the cell kernel on n_q queries: each query's 8 B, its
     7K * 4 B candidate row, its leaf's 32 B affine row and 1 B of overflow
     read once, and 22 B of results (leaf 8, weights 12, two flags)
-    written."""
-    return 1e3 * n_q * (8 + 28 * K + 32 + 1 + 22) / HBM_BYTES_PER_S
+    written; in value mode the leaf's 16 B response row read and 5 B
+    (value, walk flag) written instead."""
+    tail = CELLS_BYTES_VALUE if values else CELLS_BYTES_OUT
+    return 1e3 * n_q * (8 + 28 * K + 32 + 1 + tail) / HBM_BYTES_PER_S
 
 
 def cells2d_record(si, n_q: int = CELLS_BATCH):
     """The cell kernel against its plain version at ``n_q`` float32 queries
     on the facade ``si``'s cell index: leaf, weights, in_domain and the walk
     mask to the bit; the kernel's time by events and its device time, its
-    bound, the plain version's time on the card; one ``si.eval`` counted
-    from zero (one launch) and one profiled, with the device time of its
+    bound, the plain version's time on the card.  Its value mode
+    (``value_mode``): the values and the walk mask against the plain
+    version's leaf, weights and in_domain under interp's torch tail, to the
+    bit, its times and bound.  One ``si.eval`` counted from zero (one
+    launch, one fused eval) and one profiled, with the device time of its
     kernels by name."""
     import torch
 
@@ -288,6 +298,7 @@ def cells2d_record(si, n_q: int = CELLS_BATCH):
     from gsl_scattered_interpolation_torch.ops import cells as cells_ops
 
     tri, cells = si.tri, si._get_cells()
+    rows = device_tri.vertex_responses(tri, si.response)
     q = uniform_queries(n_q, seed=CELLS_SEED, device="cuda")[0]
     args = (q, tri.shift, tri.scale, cells.table, cells.overflow, tri.affine,
             cells.res, cells.k, cells.complete)
@@ -312,10 +323,27 @@ def cells2d_record(si, n_q: int = CELLS_BATCH):
     rec["plain_ms"] = time_ms(plain, 2)
     rec["bound_ms"], rec["bound_by"] = cells2d_bound_ms(n_q, cells.k), "bytes"
     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+
+    def launch_values():
+        return cells_ops.cells2d_cuda(*args, values=rows)
+
+    (vals, bad), (leaf, w, ok, pbad) = launch_values(), plain()
+    want = torch.where(ok, torch.sum(w * si.response[tri.tri_verts[leaf]], dim=-1), 0.0)
+    torch.cuda.synchronize()
+    value = {"mismatches": _bit_mismatches(("vals", "bad"), (vals, bad), (want, pbad))}
+    del vals, bad, leaf, w, ok, pbad, want
+    value["ms"] = time_ms(launch_values, 10)
+    value["device_ms"] = kernel_ms(launch_values)
+    value["bound_ms"] = cells2d_bound_ms(n_q, cells.k, values=True)
+    value["bound_share"] = value["bound_ms"] / value["device_ms"]
+    value["slower_ms"] = value["device_ms"] - rec["device_ms"]
+    rec["value_mode"] = value
     cells_ops.cells2d_cuda.launches = 0
+    fused = device_tri.interp.fused_evals
     si.eval(q)
     torch.cuda.synchronize()
     rec["launches_per_eval"] = cells_ops.cells2d_cuda.launches
+    rec["fused_per_eval"] = device_tri.interp.fused_evals - fused
     busy_ms, wall_ms, rows = profile_build(lambda: si.eval(q))
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
     rec["eval"] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
@@ -326,7 +354,10 @@ def cells2d_record(si, n_q: int = CELLS_BATCH):
     rec["eval"]["kernel_profiled_ms"] = kernel[0][1] if kernel else None
     log(f"cells2d kernel vs plain: {json.dumps(rec)}")
     require(not any(rec["mismatches"].values()), f"cells2d disagrees with its plain version: {rec}")
+    require(not any(value["mismatches"].values()),
+            f"cells2d's value mode disagrees with the plain version and interp's tail: {value}")
     require(rec["launches_per_eval"] == 1, f"{rec['launches_per_eval']} cells2d launches an eval")
+    require(rec["fused_per_eval"] == 1, f"{rec['fused_per_eval']} fused evals an eval")
     return rec
 
 
@@ -342,16 +373,18 @@ def _bit_mismatches(names, got, want) -> dict:
     return out
 
 
-def walk2d_bound_ms(n: "torch.Tensor", max_steps: int) -> float:
+def walk2d_bound_ms(n: "torch.Tensor", max_steps: int, values: bool = False) -> float:
     """Least ms for the walk kernel on queries whose iteration counts are
     ``n`` (``max_steps + 1`` for a walk cut at the cap): each query's
-    index, coordinates and hint read and its results written once, then
-    per step its simplex's affine row and the one neighbour entry it
+    index, coordinates and hint read and its results written once (in
+    value mode its value written and its simplex's response row read),
+    then per step its simplex's affine row and the one neighbour entry it
     steps across, and for a cut walk the affine row of the simplex it
     ends on."""
     steps = int(n.clamp(max=max_steps).sum())
     cut = int((n > max_steps).sum())
-    n_bytes = (len(n) * (WALK_BYTES_IN + WALK_BYTES_OUT) + WALK_BYTES_STEP * steps
+    out = WALK_BYTES_VALUE if values else WALK_BYTES_OUT
+    n_bytes = (len(n) * (WALK_BYTES_IN + out) + WALK_BYTES_STEP * steps
                + WALK_BYTES_LAST * cut)
     return 1e3 * n_bytes / HBM_BYTES_PER_S
 
@@ -374,14 +407,18 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
     of ``pool`` [P, B, 2] at the facade ``si``'s cell index: on the
     queries the cell kernel leaves to the walk, leaf, weights and
     in_domain to the bit, and the loop's steps against the kernel's
-    count.  On the first batch: the per-query emulation
+    count; and interp's values by the fused route (both kernels' value
+    modes) against ``locate_cells`` and interp's torch tail, to the bit.
+    On the first batch: the per-query emulation
     (``tests/walk2d_emulation.py``) against the kernel, each query's
     iterations, the kernel's time by events and its device time, its byte
-    bound, the loop's time.  Then, on every batch, one ``si.eval`` counted
-    from zero (one walk launch, at most 2 host reads); three timings, in
+    bound, the loop's time, and the same times and bound of the value
+    mode.  Then, on every batch, one ``si.eval`` counted from zero (one
+    walk launch, at most 2 host reads, one fused eval); three timings, in
     turns, of the evals as they run, of the evals without the host read
-    of the kernel's iteration count (``locate.steps`` left stale), and one
-    of the evals with the loop's walk; and one eval profiled."""
+    of the kernel's iteration count (``locate.steps`` left stale), and of
+    the evals by ``locate_cells`` and interp's torch tail (the route
+    before the value modes); and one eval profiled."""
     import torch
 
     from gsl_scattered_interpolation_torch.models import device_tri
@@ -389,8 +426,15 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
     from gsl_scattered_interpolation_torch.ops import walk as walk_ops
 
     tri, cells = si.tri, si._get_cells()
+    rows = device_tri.vertex_responses(tri, si.response)
     names = ("leaf", "w", "in_domain")
     rec = {"B": pool.shape[1], "batches": [], "T": tri.n_tris, "max_steps": max_steps}
+
+    def plain_eval(q):
+        """interp's values by locate_cells and its torch tail."""
+        leaf, w, ok = device_tri.locate_cells(tri, cells, q)
+        return torch.where(ok, torch.sum(w * si.response[tri.tri_verts[leaf]], dim=-1), 0.0)
+
     for q in pool:
         leaf, w, ok, bad = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table,
                                                   cells.overflow, tri.affine, cells.res,
@@ -403,11 +447,18 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
         n_max = int(walk_ops.walk2d_cuda(*args, *got))
         steps = device_tri.locate.steps
         device_tri._walk_in_loop(tri, cells, q, idx, max_steps, *want)
+        loop_steps = device_tri.locate.steps - steps
+        fused = device_tri.interp_cells_on_card(tri, rows, q, cells)
+        plain_vals = plain_eval(q)
         rec["batches"].append({
             "walked": idx.numel(), "n_max": n_max,
             "steps": device_tri.lockstep_steps(n_max, max_steps),
-            "loop_steps": device_tri.locate.steps - steps,
-            "mismatches": _bit_mismatches(names, got, want)})
+            "loop_steps": loop_steps,
+            "mismatches": _bit_mismatches(names, got, want),
+            "value_mismatches": _bit_mismatches(("vals", "walked_vals"),
+                                                (fused, fused[idx]),
+                                                (plain_vals, plain_vals[idx]))})
+        del fused, plain_vals
         if len(rec["batches"]) == 1:
             first = (q, idx, args, got, leaf, w, ok)
     q, idx, args, got, leaf, w, ok = first
@@ -429,23 +480,35 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
         lambda: device_tri._walk_in_loop(tri, cells, q, idx, max_steps, *loop_out), 5)
     rec["bound_ms"], rec["bound_by"] = walk2d_bound_ms(n, max_steps), "bytes"
     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    values = (rows, torch.zeros(len(q), device=q.device))
+    value = {"ms": time_ms(lambda: walk_ops.walk2d_cuda(*args, None, None, None,
+                                                        values=values), 20),
+             "device_ms": kernel_ms(lambda: walk_ops.walk2d_cuda(*args, None, None, None,
+                                                                 values=values)),
+             "bound_ms": walk2d_bound_ms(n, max_steps, values=True)}
+    value["bound_share"] = value["bound_ms"] / value["device_ms"]
+    rec["value_mode"] = value
+    del values
 
     reads = lambda: device_tri.locate.host_reads + device_tri.locate_cells_host_reads  # noqa: E731
     walk_ops.walk2d_cuda.launches = 0
-    before = reads()
+    before, fused = reads(), device_tri.interp.fused_evals
     for qb in pool:
         si.eval(qb)
     torch.cuda.synchronize()
     rec["launches_per_eval"] = walk_ops.walk2d_cuda.launches / len(pool)
     rec["host_reads_per_eval"] = (reads() - before) / len(pool)
+    rec["fused_per_eval"] = (device_tri.interp.fused_evals - fused) / len(pool)
 
     def evals():
         for qb in pool:
             si.eval(qb)
 
-    def walk_without_read(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
+    def walk_without_read(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain,
+                          values=None):
         walk_ops.walk2d_cuda(q_raw, idx, tri.shift, tri.scale, cells.hint, cells.res,
-                             tri.tri_nbrs, tri.affine, max_steps, leaf, w, in_domain)
+                             tri.tri_nbrs, tri.affine, max_steps, leaf, w, in_domain,
+                             values=values)
 
     def evals_with(walk):
         device_tri._walk_2d_on_card = walk
@@ -454,12 +517,16 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
         finally:
             device_tri._walk_2d_on_card = kernel_walk
 
+    def plain_evals():
+        for qb in pool:
+            plain_eval(qb)
+
     kernel_walk = device_tri._walk_2d_on_card
-    rec["eval_ms"], rec["eval_ms_no_read"] = [], []
+    rec["eval_ms"], rec["eval_ms_no_read"], rec["eval_ms_plain_tail"] = [], [], []
     for _ in range(3):
         rec["eval_ms"].append(evals_with(kernel_walk))
         rec["eval_ms_no_read"].append(evals_with(walk_without_read))
-    rec["eval_ms_loop_walk"] = evals_with(device_tri._walk_in_loop)
+        rec["eval_ms_plain_tail"].append(time_ms(plain_evals, 2) / len(pool))
     busy_ms, wall_ms, rows = profile_build(lambda: si.eval(pool[0]))
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
     rec["eval"] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
@@ -470,10 +537,13 @@ def walk2d_record(si, pool, max_steps: int = WALK_STEPS):
     bad = [b for b in rec["batches"]
            if any(b["mismatches"].values()) or b["steps"] != b["loop_steps"]]
     require(not bad, f"walk2d disagrees with the loop: {bad}")
+    bad = [b for b in rec["batches"] if any(b["value_mismatches"].values())]
+    require(not bad, f"the fused route disagrees with interp's tail: {bad}")
     require(not any(rec["emulation_mismatches"].values()),
             f"walk2d disagrees with its per-query emulation: {rec['emulation_mismatches']}")
     require(rec["launches_per_eval"] == 1, f"{rec['launches_per_eval']} walk2d launches an eval")
     require(rec["host_reads_per_eval"] <= 2, f"{rec['host_reads_per_eval']} host reads an eval")
+    require(rec["fused_per_eval"] == 1, f"{rec['fused_per_eval']} fused evals an eval")
     return rec
 
 
@@ -2451,7 +2521,7 @@ def boundary_100k(rec, device="cuda"):
     vals = np.sin(3 * sites[:, 0]) * np.cos(2 * sites[:, 1])
     resp = torch.cat([torch.zeros(3, device=device),
                       torch.tensor(vals, dtype=torch.float32, device=device)])
-    resp_tri = device_tri.vertex_responses(tri32, resp)
+    resp_tri = device_tri.vertex_responses(tri32, resp)[:, :3]
     out_p = (resp_tri[idx_p.long()] * device_tri._weights(tri32, idx_p.long(), q)).sum(-1)
     out_d = (resp_tri[idx_d.long()] * device_tri._weights(tri32, idx_d.long(), q)).sum(-1)
     rec["mismatch_rate"] = float((idx_p.long() != idx_d.long()).float().mean())
@@ -3409,6 +3479,9 @@ def main() -> int:
         "library_ms": None,  # no one PyTorch call computes this function
         "shape": f"B={c2d['B']} G={c2d['G']} K={c2d['K']}",
         "launches_per_eval": c2d["launches_per_eval"],
+        "fused_per_eval": c2d["fused_per_eval"],
+        # interp's route: values and walk mask, bit-equal to the tail (gated).
+        "value_mode": c2d["value_mode"],
         "eval": c2d["eval"],
     }, {
         "name": walk.KERNEL,
@@ -3436,7 +3509,11 @@ def main() -> int:
         "host_reads_per_eval": w2d["host_reads_per_eval"],
         "eval_ms": w2d["eval_ms"],
         "eval_ms_no_read": w2d["eval_ms_no_read"],
-        "eval_ms_loop_walk": w2d["eval_ms_loop_walk"],
+        "eval_ms_plain_tail": w2d["eval_ms_plain_tail"],
+        "fused_per_eval": w2d["fused_per_eval"],
+        # interp's route: bit-equal to the tail on every batch (gated).
+        "value_mode": {**w2d["value_mode"], "max_abs_err": float(any(
+            any(b["value_mismatches"].values()) for b in w2d["batches"]))},
         "eval": w2d["eval"],
     }, *tridiag_summary(pcfg)]
     for k in kernels:

@@ -1,12 +1,13 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
 Each source is a file with a plain ``extern "C"`` launcher and no PyTorch
-headers, so one nvcc call takes seconds.  Libraries go to ``_build/``
-beside this file, named by a hash of the source and the flags, so a changed
-source builds anew and an unchanged one is reused.  A library is written
-under a temporary name and moved into place with ``os.replace``: there is
-no lock file, and a build that was cut off leaves nothing that a later one
-waits on.
+headers, so one nvcc call takes seconds; the ``.cuh`` headers beside the
+sources hold device functions that several kernels share.  Libraries go
+to ``_build/`` beside this file, named by a hash of the source, the
+headers and the flags, so a changed source or header builds anew and an
+unchanged one is reused.  A library is written under a temporary name and
+moved into place with ``os.replace``: there is no lock file, and a build
+that was cut off leaves nothing that a later one waits on.
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library of ``csrc/<name>.cu`` lives."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,5 +1,6 @@
 // 2D point location by the cell index on Hopper (sm_90a): the candidate
-// scoring of models/device_tri.py::locate_cells, through the walk mask.
+// scoring of models/device_tri.py::locate_cells, through the walk mask,
+// and for device_tri.interp each query's value besides.
 //
 // Replaces no Pallas kernel: the JAX package scores a query's cell with
 // XLA ops (gsl_scattered_interpolation_tpu/models/device_tri.py::
@@ -29,11 +30,21 @@
 // on, so the mins do too.  A NaN query, which the plain version cannot
 // index, lands in cell 0 and comes out not contained.
 //
+// Value mode (vals given, interp's route): lane 0 also reads the leaf's
+// 16-byte row of vertex responses (device_tri.vertex_responses) beside its
+// affine row, and writes the value (bary2d.cuh, the tail of
+// device_tri.interp) and the walk mask instead of leaf, weights and
+// in_domain.  One load beside the affine row, not the vertex ids and then
+// the responses: that chain of two dependent loads took 4.33 ms a batch at
+// the 1M cell's shape, 0.56 ms more than the scoring alone (PERF.md §6).
+//
 // Bound.  Per query: 8 B of query, the 7K * 4 = 448 B row (K = 16) from a
 // table far larger than the 50 MB L2, the 32 B affine row, 1 B of overflow,
 // and 22 B out (leaf 8, weights 12, in_domain 1, bad 1): about 511 B, so at
-// 3.35 TB/s 0.153 ms per 10^6 queries.  The work is a few dozen float
-// instructions per slot: memory-bound by two orders of magnitude.
+// 3.35 TB/s 0.153 ms per 10^6 queries.  In value mode the out is 5 B (value
+// 4, bad 1) and the 16 B response row comes in: about 510 B, 0.152 ms per
+// 10^6.  The work is a few dozen float instructions per slot: memory-bound
+// by two orders of magnitude.
 //
 // Design.  kLanes = 8 lanes score one query, each two adjacent slots a
 // pass (slots 2l, 2l + 1, then 2l + 16, ... when K > 16): each field's
@@ -52,6 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bary2d.cuh"
 
 namespace {
 
@@ -82,14 +95,16 @@ __device__ __forceinline__ int cell_of(float s, float G, float top) {
 }
 
 // kEven: K is even, so a lane's two slots are one aligned 8-byte load.
-template <bool kEven>
+// kValues: the value mode (vals, not leaf, w and in_domain).
+template <bool kEven, bool kValues>
 __global__ void __launch_bounds__(kThreads)
 cells2d_kernel(const float2* __restrict__ q, const float* __restrict__ shift,
                const float* __restrict__ scale, const float* __restrict__ table,
                const unsigned char* __restrict__ overflow,
                const float4* __restrict__ affine, int n_q, int G, int K, int complete,
-               float tol, long long* __restrict__ leaf, float* __restrict__ w,
-               bool* __restrict__ in_domain, bool* __restrict__ bad) {
+               float tol, const float4* __restrict__ resp_rows, long long* __restrict__ leaf,
+               float* __restrict__ w, bool* __restrict__ in_domain, float* __restrict__ vals,
+               bool* __restrict__ bad) {
   const int lane = threadIdx.x & (kLanes - 1);
   const int i = blockIdx.x * kQueriesPerBlock + threadIdx.x / kLanes;
   if (i >= n_q) return;  // the query's lanes leave together
@@ -153,6 +168,7 @@ cells2d_kernel(const float2* __restrict__ q, const float* __restrict__ shift,
   if (lane != 0) return;
 
   const int t = static_cast<int>(fmaxf(best_tid, 0.0f));
+  const float4 r = kValues ? __ldg(resp_rows + t) : float4{};
   const float4 a0 = __ldg(affine + 2 * static_cast<size_t>(t));
   const float4 a1 = __ldg(affine + 2 * static_cast<size_t>(t) + 1);
   const float e0 = __fsub_rn(qi.x, a1.x);
@@ -163,12 +179,16 @@ cells2d_kernel(const float2* __restrict__ q, const float* __restrict__ shift,
   const bool contained = best >= tol;
   const bool w_ok = w0 >= tol && w1 >= tol && w2 >= tol;
   const bool outside = fabsf(sx) > 0.5f || fabsf(sy) > 0.5f;
-  leaf[i] = t;
-  float* wi = w + 3 * static_cast<size_t>(i);
-  wi[0] = w0;
-  wi[1] = w1;
-  wi[2] = w2;
-  in_domain[i] = contained && w_ok;
+  if (kValues) {
+    vals[i] = bary_value(r, w0, w1, w2, contained && w_ok);
+  } else {
+    leaf[i] = t;
+    float* wi = w + 3 * static_cast<size_t>(i);
+    wi[0] = w0;
+    wi[1] = w1;
+    wi[2] = w2;
+    in_domain[i] = contained && w_ok;
+  }
   bad[i] = complete ? (((ovf != 0) || outside) && !contained) || (contained && !w_ok)
                     : !(contained && w_ok);
 }
@@ -177,22 +197,28 @@ cells2d_kernel(const float2* __restrict__ q, const float* __restrict__ shift,
 
 // q: [n_q, 2] float32, raw; shift, scale: [2] float32; table: [G * G, 7K]
 // float32; overflow: [G * G] bool; affine: [T, 8] float32, 16-byte
-// aligned; leaf: [n_q] int64; w: [n_q, 3] float32; in_domain, bad: [n_q]
-// bool.  All contiguous on the current device.  tol is the (negative)
+// aligned; bad: [n_q] bool.  Either leaf: [n_q] int64, w: [n_q, 3]
+// float32 and in_domain: [n_q] bool, with resp_rows and vals null; or (the
+// value mode) resp_rows: [T, 4] float32, 16-byte aligned, and vals: [n_q]
+// float32, with leaf, w and in_domain null.  All contiguous on the current device.  tol is the (negative)
 // float32 slack of the score and of the weights.  Launches one kernel on
 // `stream` and returns cudaGetLastError().
 extern "C" int cells2d_launch(const void* q, const void* shift, const void* scale,
                               const void* table, const void* overflow, const void* affine,
                               int n_q, int G, int K, int complete, float tol,
-                              void* leaf, void* w, void* in_domain, void* bad,
-                              void* stream) {
+                              const void* resp_rows, void* leaf, void* w, void* in_domain,
+                              void* vals, void* bad, void* stream) {
   const int blocks = (n_q + kQueriesPerBlock - 1) / kQueriesPerBlock;
-  const auto kernel = K % 2 == 0 ? cells2d_kernel<true> : cells2d_kernel<false>;
+  const bool even = K % 2 == 0;
+  const auto kernel = vals != nullptr ? (even ? cells2d_kernel<true, true>
+                                              : cells2d_kernel<false, true>)
+                                      : (even ? cells2d_kernel<true, false>
+                                              : cells2d_kernel<false, false>);
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(q), static_cast<const float*>(shift),
       static_cast<const float*>(scale), static_cast<const float*>(table),
       static_cast<const unsigned char*>(overflow), static_cast<const float4*>(affine), n_q,
-      G, K, complete, tol, static_cast<long long*>(leaf), static_cast<float*>(w),
-      static_cast<bool*>(in_domain), static_cast<bool*>(bad));
+      G, K, complete, tol, static_cast<const float4*>(resp_rows), static_cast<long long*>(leaf), static_cast<float*>(w), static_cast<bool*>(in_domain),
+      static_cast<float*>(vals), static_cast<bool*>(bad));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,13 +29,16 @@
 // loop's lockstep step count.  Every multiply, add and subtract is an
 // __f*_rn intrinsic (and the build keeps -fmad=false), so the weights agree
 // with the loop's to the bit.  The results go to row idx[i] of the batch's
-// leaf, w and in_domain in place.
+// leaf, w and in_domain in place; or, in value mode (vals given,
+// device_tri.interp's route), the query's value alone goes to vals[idx[i]]
+// (bary2d.cuh, the same epilogue as cells2d.cu's).
 //
 // Bound.  Per walked query: idx 8 B, q 8 B, hint 4 B, then per step its
 // simplex's 32 B affine row and the one 4 B neighbour entry it reads, for
 // a walk cut at max_steps the 32 B row of the simplex it ends on, and 21 B
-// out (leaf 8, weights 12, in_domain 1).  At the 1M cell's shape (about
-// 9,100-9,700 walked queries a batch of 2*10^7, 4.5-4.6 iterations on
+// out (leaf 8, weights 12, in_domain 1); in value mode 4 B out and the
+// 16 B response row of the simplex it ends on in.  At the 1M cell's shape
+// (about 9,100-9,700 walked queries a batch of 2*10^7, 4.5-4.6 iterations on
 // average, 11-12 at most, none cut) that is 1.9-2.0 MB, 0.55-0.60 us at
 // 3.35 TB/s (chip_smoke.walk2d_bound_ms): the kernel is bound by latency,
 // a chain of 3 + 2 * steps dependent loads, each a trip to L2 or HBM of
@@ -48,6 +51,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bary2d.cuh"
 
 namespace {
 
@@ -83,13 +88,16 @@ __device__ __forceinline__ void weights(const float4* __restrict__ affine, int t
   w[2] = __fsub_rn(1.0f, __fadd_rn(w[0], w[1]));
 }
 
+// kValues: the value mode (vals, not leaf, w and in_domain).
+template <bool kValues>
 __global__ void __launch_bounds__(kThreads)
 walk2d_kernel(const float2* __restrict__ q, const long long* __restrict__ idx, int n_walk,
               const float* __restrict__ shift, const float* __restrict__ scale,
               const int* __restrict__ hint, int G, const int* __restrict__ nbrs,
               const float4* __restrict__ affine, int max_steps, float tol,
-              long long* __restrict__ leaf, float* __restrict__ w_out,
-              bool* __restrict__ in_domain, int* __restrict__ n_max) {
+              const float4* __restrict__ resp_rows, long long* __restrict__ leaf, float* __restrict__ w_out,
+              bool* __restrict__ in_domain, float* __restrict__ vals,
+              int* __restrict__ n_max) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   int n = 0;  // this query's iterations; 0 for a thread with no query
   if (i < n_walk) {
@@ -126,15 +134,21 @@ walk2d_kernel(const float2* __restrict__ q, const long long* __restrict__ idx, i
       prev = cur;
       cur = nbr;
     }
+    const float4 r = kValues ? __ldg(resp_rows + cur) : float4{};
     weights(affine, cur, qi.x, qi.y, w);
     const bool contained = w[0] >= -tol && w[1] >= -tol && w[2] >= -tol;
     const bool sane = w[0] > -0.5f && w[1] > -0.5f && w[2] > -0.5f;
-    leaf[row] = cur;
-    float* wr = w_out + 3 * row;
-    wr[0] = w[0];
-    wr[1] = w[1];
-    wr[2] = w[2];
-    in_domain[row] = !outside && (contained || n <= max_steps) && sane;
+    const bool ok = !outside && (contained || n <= max_steps) && sane;
+    if (kValues) {
+      vals[row] = bary_value(r, w[0], w[1], w[2], ok);
+    } else {
+      leaf[row] = cur;
+      float* wr = w_out + 3 * row;
+      wr[0] = w[0];
+      wr[1] = w[1];
+      wr[2] = w[2];
+      in_domain[row] = ok;
+    }
   }
   n = __reduce_max_sync(0xFFFFFFFFu, n);
   if ((threadIdx.x & 31) == 0 && n > 0) atomicMax(n_max, n);
@@ -144,25 +158,31 @@ walk2d_kernel(const float2* __restrict__ q, const long long* __restrict__ idx, i
 
 // q: [B, 2] float32, raw, 8-byte aligned; idx: [n_walk] int64, the rows to
 // walk; shift, scale: [2] float32; hint: [G * G] int32; nbrs: [T, 3] int32
-// (-1 a boundary face); affine: [T, 8] float32, 16-byte aligned; leaf: [B]
-// int64, w: [B, 3] float32, in_domain: [B] bool, written at the rows of idx;
-// n_max: one int32, set to the largest iteration count (0 if n_walk is 0).
-// All contiguous on the current device; tol is the walk's (positive) slack.
-// Queues a memset of n_max and one kernel on `stream` and returns the first
-// CUDA error.
+// (-1 a boundary face); affine: [T, 8] float32, 16-byte aligned.  Either
+// leaf: [B] int64, w: [B, 3] float32 and in_domain: [B] bool, written at
+// the rows of idx, with resp_rows and vals null; or (the value mode)
+// resp_rows: [T, 4] float32, 16-byte aligned, and vals: [B] float32,
+// written at the rows of idx, with leaf, w and in_domain null.  n_max:
+// one int32, set to the largest iteration count (0 if n_walk is 0).  All
+// contiguous on the current device; tol is the walk's (positive) slack.
+// Queues a memset of n_max and one kernel on `stream` and returns the
+// first CUDA error.
 extern "C" int walk2d_launch(const void* q, const void* idx, int n_walk, const void* shift,
                              const void* scale, const void* hint, int G, const void* nbrs,
-                             const void* affine, int max_steps, float tol, void* leaf,
-                             void* w, void* in_domain, void* n_max, void* stream) {
+                             const void* affine, int max_steps, float tol,
+                             const void* resp_rows, void* leaf, void* w, void* in_domain,
+                             void* vals, void* n_max, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(n_max, 0, sizeof(int), s);
   if (err != cudaSuccess || n_walk == 0) return static_cast<int>(err);
   const int blocks = (n_walk + kThreads - 1) / kThreads;
-  walk2d_kernel<<<blocks, kThreads, 0, s>>>(
+  const auto kernel = vals != nullptr ? walk2d_kernel<true> : walk2d_kernel<false>;
+  kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const float2*>(q), static_cast<const long long*>(idx), n_walk,
       static_cast<const float*>(shift), static_cast<const float*>(scale),
       static_cast<const int*>(hint), G, static_cast<const int*>(nbrs),
-      static_cast<const float4*>(affine), max_steps, tol, static_cast<long long*>(leaf),
-      static_cast<float*>(w), static_cast<bool*>(in_domain), static_cast<int*>(n_max));
+      static_cast<const float4*>(affine), max_steps, tol, static_cast<const float4*>(resp_rows),
+      static_cast<long long*>(leaf), static_cast<float*>(w),
+      static_cast<bool*>(in_domain), static_cast<float*>(vals), static_cast<int*>(n_max));
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,8 @@ the tensors' device, as they are plain ``jnp`` ops in the JAX package.
 The JAX ``while_loop`` and ``lax.cond`` tiers become Python loops with a
 few host reads (recorded in ROADMAP.md).  For 2D float32 queries on the
 card, ``locate_cells`` scores with ``kernels/csrc/cells2d.cu`` and walks
-with ``kernels/csrc/walk2d.cu`` instead.
+with ``kernels/csrc/walk2d.cu`` instead, and ``interp`` has the same two
+kernels write each query's value (:func:`interp_cells_on_card`).
 """
 
 from __future__ import annotations
@@ -1436,12 +1437,16 @@ def _locate_cells_score_3d(tri: DeviceTriangulation, cells: CellIndex, q_raw):
     return cid, leaf, bestw, q_std
 
 
+# The longest walk of a query the cell index leaves to the walk.
+FALLBACK_STEPS = 32
+
+
 def locate_cells(
     tri: DeviceTriangulation,
     cells: CellIndex,
     q_raw,
     fallback: str = "auto",
-    fallback_steps: int = 32,
+    fallback_steps: int = FALLBACK_STEPS,
 ):
     """Batched location by the cell index, with the walk as fallback.
 
@@ -1469,12 +1474,9 @@ def locate_cells(
 
     Returns (leaf [B] int64, weights [B, d+1], in_domain [B]).
     """
-    global locate_cells_host_reads
-    on_card = (
-        tri.dim == 2
-        and q_raw.device.type == "cuda"
-        and q_raw.dtype == cells.table.dtype == tri.affine.dtype
-        == torch.float32
+    on_card = cells_on_card(
+        q_raw.device.type, tri.dim, q_raw.dtype, cells.table.dtype,
+        tri.affine.dtype,
     )
     if on_card:
         q_raw = q_raw.contiguous()
@@ -1498,9 +1500,7 @@ def locate_cells(
             )
     if fallback == "none":
         return leaf, w, in_domain
-    with profiling.span("device_tri.locate_cells.select"):
-        locate_cells_host_reads += 1
-        idx = torch.nonzero(bad)[:, 0]
+    idx = _select(bad)
     if idx.numel() == 0:
         return leaf, w, in_domain
     walk = _walk_2d_on_card if on_card else _walk_in_loop
@@ -1510,6 +1510,26 @@ def locate_cells(
 
 # The host reads of ``locate_cells``'s walk mask: one a call that may walk.
 locate_cells_host_reads = 0
+
+
+def cells_on_card(device_type: str, dim: int, *dtypes) -> bool:
+    """Whether the cell route runs its hand-written kernels: 2D on CUDA,
+    with every one of ``dtypes`` (the queries', the index table's and the
+    affine maps'; for :func:`interp` the responses' too) float32."""
+    return (
+        device_type == "cuda"
+        and dim == 2
+        and all(d == torch.float32 for d in dtypes)
+    )
+
+
+def _select(bad):
+    """The rows of the walk mask ``bad`` [B] to walk, int64 [M]: one host
+    read, the span ``device_tri.locate_cells.select``."""
+    global locate_cells_host_reads
+    with profiling.span("device_tri.locate_cells.select"):
+        locate_cells_host_reads += 1
+        return torch.nonzero(bad)[:, 0]
 
 
 def _walk_in_loop(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
@@ -1526,17 +1546,21 @@ def _walk_in_loop(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
     in_domain[idx] = sub_in & torch.all(sub_w > -0.5, dim=-1)
 
 
-def _walk_2d_on_card(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
+def _walk_2d_on_card(
+    tri, cells, q_raw, idx, max_steps, leaf, w, in_domain, values=None
+):
     """:func:`locate_cells`'s walk of rows ``idx`` of float32 queries on
     the card, in one launch of ``ops.walk.walk2d_cuda``: each query walks
     from its cell's hint to its end, and its leaf, weights and in_domain
-    are written in place.  The span and the counters are :func:`locate`'s;
+    are written in place (with ``values``, the kernel's value mode, its
+    value alone).  The span and the counters are :func:`locate`'s;
     ``locate.steps`` grows by the steps the loop would have taken, from
     the kernel's largest iteration count, fetched by one host read."""
     with profiling.span("device_tri.locate"):
         n_max = walk_ops.walk2d_cuda(
             q_raw, idx, tri.shift, tri.scale, cells.hint, cells.res,
             tri.tri_nbrs, tri.affine, max_steps, leaf, w, in_domain,
+            values=values,
         )
         locate.host_reads += 1
         locate.steps += lockstep_steps(int(n_max), max_steps)
@@ -1549,12 +1573,17 @@ def _walk_2d_on_card(tri, cells, q_raw, idx, max_steps, leaf, w, in_domain):
 
 
 def vertex_responses(tri: DeviceTriangulation, response_ext) -> torch.Tensor:
-    """Per-triangle response triplets [T, d+1].
+    """Per-triangle response rows: [T, d+1], and in 2D [T, 4] with a zero
+    in the last column, so that a float32 row is one 16-byte load.
 
     Pass the result to :func:`interp` as ``resp_tri``: evaluation then does
-    one [B, d+1] row gather instead of two chained gathers.
+    one row gather instead of two chained gathers, and the 2D cell route
+    on the card (:func:`interp_cells_on_card`) reads it from its kernels.
     """
-    return response_ext[tri.tri_verts]
+    rows = response_ext[tri.tri_verts]
+    if tri.dim == 2:
+        rows = torch.nn.functional.pad(rows, (0, 1))
+    return rows.contiguous()
 
 
 def auto_method(
@@ -1601,7 +1630,12 @@ def interp(
     method: "auto" takes the route of :func:`auto_method`.  "cells" uses
     ``cells`` (:func:`build_cell_index`), "pallas" the locate kernel (its
     plain version on the CPU), "dense" the matmul brute force, "walk" the
-    visibility walk of at most ``max_steps`` steps.
+    visibility walk of at most ``max_steps`` steps.  ``resp_tri``: the
+    triangles' response rows (:func:`vertex_responses`), read in place of
+    ``response_ext`` where given.  The cell route of 2D float32 queries and
+    responses on the card is :func:`interp_cells_on_card`, whose kernels
+    write the values from the response rows; every other route locates,
+    then gathers and sums in torch (its plain version).
     """
     if method == "auto":
         method = auto_method(
@@ -1613,6 +1647,14 @@ def interp(
             raise errors.InvalidArgumentError(
                 "method='cells' needs a CellIndex (build_cell_index)"
             )
+        resp = response_ext if resp_tri is None else resp_tri
+        if cells_on_card(
+            q_raw.device.type, tri.dim, q_raw.dtype, cells.table.dtype,
+            tri.affine.dtype, resp.dtype,
+        ):
+            if resp_tri is None:
+                resp_tri = vertex_responses(tri, response_ext)
+            return interp_cells_on_card(tri, resp_tri, q_raw, cells)
         leaf, w, in_domain = locate_cells(tri, cells, q_raw)
     elif method == "pallas":
         leaf, w = locate_ops.locate_weights_kernel(tri, q_raw)
@@ -1627,8 +1669,43 @@ def interp(
     else:
         raise errors.InvalidArgumentError(f"unknown method {method!r}")
     if resp_tri is not None:
-        vals = resp_tri[leaf]  # [B, d+1]: one row gather
+        vals = resp_tri[leaf, : tri.dim + 1]  # one row gather
     else:
         vals = response_ext[tri.tri_verts[leaf]]
     out = torch.sum(w * vals, dim=-1)
     return torch.where(in_domain, out, 0.0)
+
+
+interp.fused_evals = 0
+
+
+def interp_cells_on_card(
+    tri: DeviceTriangulation, resp_rows, q_raw, cells: CellIndex
+):
+    """:func:`interp` by the cell index for 2D float32 queries on the card,
+    the values written by the kernels' epilogues from the triangles'
+    response rows ``resp_rows`` (:func:`vertex_responses`, [T, 4]
+    float32): one launch of ``ops.cells.cells2d_cuda`` in value mode, the
+    host read of the walk mask, and, where a query needs it, one launch of
+    ``ops.walk.walk2d_cuda`` in value mode into the same values.
+
+    The same values, to the bit, as :func:`locate_cells` followed by
+    :func:`interp`'s tail on the card; no leaf, weight or ``in_domain``
+    tensor is made.  The spans and counters are ``locate_cells``'s and the
+    walk's; each call adds one to ``interp.fused_evals``.
+    """
+    q_raw = q_raw.contiguous()
+    with profiling.span("device_tri.locate_cells.score"):
+        vals, bad = cells_ops.cells2d_cuda(
+            q_raw, tri.shift, tri.scale, cells.table, cells.overflow,
+            tri.affine, cells.res, cells.k, cells.complete,
+            values=resp_rows,
+        )
+    idx = _select(bad)
+    if idx.numel():
+        _walk_2d_on_card(
+            tri, cells, q_raw, idx, FALLBACK_STEPS, None, None, None,
+            values=(resp_rows, vals),
+        )
+    interp.fused_evals += 1
+    return vals

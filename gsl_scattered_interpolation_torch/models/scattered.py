@@ -110,6 +110,7 @@ class ScatteredInterp:
             ).to(dtype)
             self.shuffle = self.tree.shuffle
         self._cells = None
+        self._resp_tri = None
 
     # -- evaluation ------------------------------------------------------
 
@@ -119,14 +120,18 @@ class ScatteredInterp:
 
     def _get_cells(self):
         """The cell index, built at the first query past
-        ``DENSE_LOCATE_MAX_TRIS`` simplexes and cached; None below it,
-        where brute force answers."""
+        ``DENSE_LOCATE_MAX_TRIS`` simplexes and cached, with the triangles'
+        response rows that evaluation by it reads; None below it, where
+        brute force answers."""
         if (
             self._cells is None
             and self.dim in (2, 3)
             and self.tri.n_tris > device_tri.DENSE_LOCATE_MAX_TRIS
         ):
             self._cells = device_tri.build_cell_index(self.tri)
+            self._resp_tri = device_tri.vertex_responses(
+                self.tri, self.response
+            )
         return self._cells
 
     def _locate(self, q):
@@ -148,7 +153,8 @@ class ScatteredInterp:
         with profiling.span("scattered.eval"):
             q = self._queries(q)
             vals = device_tri.interp(
-                self.tri, self.response, q, cells=self._get_cells()
+                self.tri, self.response, q, cells=self._get_cells(),
+                resp_tri=self._resp_tri,
             )
             if strict:
                 _, _, ok = self._locate(q)

@@ -12,7 +12,7 @@ inside each test, never while the module is imported.
 import numpy as np
 import pytest
 import torch
-from walk2d_emulation import walk2d_plain
+from walk2d_emulation import bary_values, fixture_tri, walk2d_plain
 
 from gsl_scattered_interpolation_torch import ScatteredInterp
 from gsl_scattered_interpolation_torch.models import device_tri, host_tree
@@ -456,6 +456,14 @@ def test_cells_wrapper_checks_inputs(cuda):
             call(**bad_args)
     leaf, w, ok, bad = call(q=q[:0])
     assert leaf.shape == (0,) and w.shape == (0, 3) and ok.shape == bad.shape == (0,)
+    rows = device_tri.vertex_responses(tri, si.response)
+    assert rows.shape == (tri.n_tris, 4) and not bool(rows[:, 3].any())
+    for bad_rows in (rows.double(), rows[:-1], rows.cpu(), rows[:, :3].contiguous(),
+                     rows.flatten()[1:-3].view(-1, 4)):
+        with pytest.raises(errors.InvalidArgumentError):
+            call(values=bad_rows)
+    vals, bad = call(q=q[:0], values=rows)
+    assert vals.shape == bad.shape == (0,) and vals.dtype == torch.float32
 
 
 def _facade_1m():
@@ -573,6 +581,17 @@ def test_walk_wrapper_checks_inputs(cuda):
             call(**bad_args)
     n_max, args = call(idx=torch.zeros(0, dtype=torch.int64, device=cuda))
     assert int(n_max) == 0 and not bool(args["leaf"].any())
+    rows, vals = device_tri.vertex_responses(tri, si.response), torch.zeros(B, device=cuda)
+    none = dict(leaf=None, w=None, in_domain=None)
+    for bad_args in (dict(values=(rows, vals)),  # the outputs of both modes
+                     dict(values=(rows.double(), vals), **none),
+                     dict(values=(rows[:, :3].contiguous(), vals), **none),
+                     dict(values=(rows, vals[:-1]), **none),
+                     dict(values=(rows, vals.double()), **none)):
+        with pytest.raises(errors.InvalidArgumentError):
+            call(**bad_args)
+    n_max, args = call(values=(rows, vals), **none)
+    assert int(n_max) > 0 and bool(vals[:5].any()) and not bool(vals[5:].any())
 
 
 def test_one_walk_launch_per_locate_cells_call_that_walks(cuda):
@@ -589,6 +608,98 @@ def test_one_walk_launch_per_locate_cells_call_that_walks(cuda):
         device_tri.locate_cells(tri, cells, q)
         assert walk_ops.walk2d_cuda.launches == before[0] + walks
         assert device_tri.locate.queries - before[1] == (int(bad.sum()) if walks else 0)
+
+
+def _fused_equals_plain(tri, cells, resp, q):
+    """interp's fused cell route (``interp_cells_on_card``) against
+    ``locate_cells`` and interp's torch tail on the card, and against the
+    epilogue's emulation, to the bit: one launch of the cell kernel, one
+    of the walk kernel if any row walks, none otherwise, and one fused
+    eval.  Returns the number of rows walked."""
+    counts = lambda: (cells_ops.cells2d_cuda.launches, walk_ops.walk2d_cuda.launches,  # noqa: E731
+                      device_tri.interp.fused_evals, device_tri.locate.queries)
+    before = counts()
+    got = device_tri.interp(tri, resp, q, method="cells", cells=cells)
+    torch.cuda.synchronize()
+    cells2d, walk2d, fused, walked = (a - b for a, b in zip(counts(), before))
+    assert (cells2d, walk2d, fused) == (1, int(walked > 0), 1)
+    leaf, w, ok = device_tri.locate_cells(tri, cells, q)
+    r = resp[tri.tri_verts[leaf]]
+    want = torch.where(ok, torch.sum(w * r, dim=-1), 0.0)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    rows = device_tri.vertex_responses(tri, resp)
+    given = device_tri.interp(tri, resp, q, method="cells", cells=cells, resp_tri=rows)
+    for name, ref in (("tail", want), ("emulation", bary_values(w, r, ok)),
+                      ("rows given", given)):
+        torch.testing.assert_close(got.view(torch.int32), ref.view(torch.int32),
+                                   rtol=0, atol=0, msg=name)
+    return walked
+
+
+def test_fused_eval_equals_plain_on_the_1m_pool(cuda):
+    # Every batch of the 1M cell's pool (tri2d_1m.eval at one seed: 10^6
+    # sites, 16 batches of 2*10^7 queries), walked rows included.
+    from benchmark import generate, run
+    from gsl_scattered_interpolation_torch.models import scattered
+
+    seed = 2147600020
+    _, config, traffic = run.cell_parts(run.load_spec(), "tri2d_1m.eval")
+    sites, values = generate.problem(config, seed)
+    si = ScatteredInterp(sites, values, flags=getattr(scattered, config["flags"]),
+                         engine=config["engine"], dtype=getattr(torch, config["dtype"]),
+                         grid_res=config["grid_res"], device=cuda)
+    tri, cells = si.tri, si._get_cells()
+    pool = generate.query_pool(config, traffic, seed, cuda)
+    walked = [_fused_equals_plain(tri, cells, si.response, q) for q in pool]
+    assert len(walked) == 16 and min(walked) > 1000
+    fused = device_tri.interp.fused_evals
+    torch.testing.assert_close(si.eval(pool[0]).view(torch.int32),
+                               device_tri.interp(tri, si.response, pool[0], method="cells",
+                                                 cells=cells).view(torch.int32), rtol=0, atol=0)
+    assert device_tri.interp.fused_evals == fused + 2  # the facade takes it too
+
+
+def _fixture_queries(tri, n, device):
+    """n float32 queries over the fixture's sites' box and a margin, then
+    queries outside the cage and NaN and infinite ones."""
+    rng = np.random.default_rng(n)
+    pts = tri.points_raw[tri.dim + 1:].double().cpu().numpy()
+    lo, hi = pts.min(0), pts.max(0)
+    pad = 0.1 * (hi - lo)
+    nan, inf = float("nan"), float("inf")
+    edge = [[1e7, 1e7], [-1e7, 3e6], [nan, 0.0], [0.0, nan], [nan, nan], [inf, 0.0]]
+    q = np.concatenate([rng.uniform(lo - pad, hi + pad, size=(n, 2)), edge])
+    return torch.as_tensor(q, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("K", [2, None])
+@pytest.mark.parametrize("name", ["weather", "uniform", "cocircular"])
+def test_fused_eval_equals_plain_on_fixtures(cuda, name, K):
+    # The slivers' fixtures on the card, with their own index and with K =
+    # 2, where most cells overflow and most queries walk.
+    tri = fixture_tri(name).to(cuda)
+    cells = device_tri.build_cell_index(tri, **({} if K is None else {"K": K}))
+    r = np.random.default_rng(3).uniform(-2.0, 2.0, size=tri.points_raw.shape[0])
+    r[:3] = 0.0  # the cage's rows
+    resp = torch.as_tensor(r, dtype=torch.float32, device=cuda)
+    walked = _fused_equals_plain(tri, cells, resp, _fixture_queries(tri, 20_000, cuda))
+    assert walked > 0
+
+
+def test_fused_eval_nan_outside_and_no_walk(cuda):
+    # NaN and infinite queries and queries outside the square and the
+    # cage on the 20,000-site facade; then a batch that walks nothing.
+    si = _facade_20k()
+    tri, cells = si.tri, si._get_cells()
+    nan, inf = float("nan"), float("inf")
+    edge = [[nan, 0.1], [0.2, nan], [nan, nan], [inf, 0.0], [-inf, -inf], [1e7, 1e7]]
+    q = torch.cat([torch.tensor(edge, device=cuda), _cell_queries(100_000, cuda)])
+    assert _fused_equals_plain(tri, cells, si.response, q) > 0
+    got = device_tri.interp(tri, si.response, q, method="cells", cells=cells)
+    assert not bool(got[:len(edge)].any()) and not bool(torch.signbit(got[:len(edge)]).any())
+    bad = cells_ops.cells2d_cuda(q, tri.shift, tri.scale, cells.table, cells.overflow,
+                                 tri.affine, cells.res, cells.k, cells.complete)[3]
+    assert _fused_equals_plain(tri, cells, si.response, q[~bad].contiguous()) == 0
 
 
 def test_float64_facade_on_card_keeps_every_query(cuda):

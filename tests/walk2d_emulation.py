@@ -1,18 +1,57 @@
-"""The walk kernel's arithmetic, query by query, in numpy on the CPU.
+"""The 2D cell route's kernel arithmetic, emulated on the CPU.
 
 ``kernels/csrc/walk2d.cu`` walks each query alone; :func:`walk2d_plain`
 repeats that walk step for step, iteration count included, so that
 ``tests/test_torch_walk2d.py`` can hold the kernel's semantics to the
 lockstep loop of ``models/device_tri.py::locate`` without a card, and the
-card tests and ``chip_smoke.py --walk2d`` can hold the kernel to it.  The
-port itself keeps only the kernel's wrapper (``ops/walk.py``) and the loop.
-Imports torch, numpy and the port only.
+card tests and ``chip_smoke.py --walk2d`` can hold the kernel to it.
+:func:`bary_values` is the value epilogue that both ``cells2d.cu`` and
+``walk2d.cu`` run in value mode (``kernels/csrc/bary2d.cuh``), and
+:func:`fixture_tri` the float32 triangulations with slivers that the CPU
+and card tests share.  The port itself keeps only the kernels' wrappers
+(``ops/cells.py``, ``ops/walk.py``) and their plain versions.  Imports
+torch, numpy and the port only.
 """
+
+import functools
 
 import numpy as np
 import torch
 
+from gsl_scattered_interpolation_torch.models import device_tri, host_tree
 from gsl_scattered_interpolation_torch.ops.walk import TOL
+from gsl_scattered_interpolation_torch.utils import datasets
+
+
+@functools.cache
+def fixture_tri(name):
+    """A float32 triangulation on the CPU with slivers: the weather
+    stations, uniform sites, or a jittered grid (its quads near-cocircular)
+    inside a ring of near-cocircular sites (a fan of slivers along it)."""
+    rng = np.random.default_rng(11)
+    if name == "weather":
+        tree = host_tree.build(datasets.weather()[0], key=0)
+    elif name == "uniform":
+        tree = host_tree.build(rng.uniform(-0.5, 0.5, size=(600, 2)),
+                               flags=host_tree.NOSTANDARDIZE)
+    else:
+        g = np.linspace(-0.3, 0.3, 12)
+        grid = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+        angle = np.linspace(0, 2 * np.pi, 96, endpoint=False)
+        ring = 0.45 * np.stack([np.cos(angle), np.sin(angle)], -1)
+        sites = np.concatenate([grid, ring]) + rng.normal(scale=1e-7, size=(240, 2))
+        tree = host_tree.build(sites, flags=host_tree.NOSTANDARDIZE)
+    return device_tri.freeze(tree, device="cpu").cast(torch.float32)
+
+
+def bary_values(w, r, in_domain):
+    """The kernels' value epilogue (``bary2d.cuh``) in torch, on the CPU or
+    the card: float32 weights w [B, 3] and vertex responses r [B, 3] to
+    values [B], each product and sum rounded on its own and summed as
+    ``torch.sum`` over 3 sums on the card, (p0 + p2) + p1, a -0 made +0;
+    +0 where not ``in_domain``."""
+    p = w * r
+    return torch.where(in_domain, (p[:, 0] + p[:, 2]) + p[:, 1] + 0.0, 0.0)
 
 
 def _less_or_nan(a, ia, b, ib) -> bool:
